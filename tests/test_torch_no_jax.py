@@ -1,0 +1,78 @@
+"""The port runs where JAX is not installed: every module of
+implicit_depth_tpu_torch, the JAX package's numpy modules it reuses, and
+chip_smoke.py import with `jax` and `flax` blocked (chip_smoke.py's path
+also without yaml and PIL); chip_smoke.py refuses to run without a CUDA
+device or outside the repository."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import implicit_depth_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names + ["implicit_depth_tpu.data.synthetic", "implicit_depth_tpu.data.loader",
+                     "implicit_depth_tpu.data.registry", "implicit_depth_tpu.data.mvs_dataset",
+                     "implicit_depth_tpu.utils.fixtures", "chip_smoke"]:
+    importlib.import_module(name)
+import chip_smoke
+assert callable(chip_smoke.main)
+print(len(names))
+"""
+
+
+# what chip_smoke.py's phases import: the card's machine may also lack
+# yaml and PIL
+_IMPORT_CHIP_SMOKE = r"""
+import importlib, sys
+for blocked in ("jax", "flax", "yaml", "PIL"):
+    sys.modules[blocked] = None
+for name in ("chip_smoke", "implicit_depth_tpu.data.synthetic", "implicit_depth_tpu.data.loader",
+             "implicit_depth_tpu.utils.fixtures", "implicit_depth_tpu_torch.eval.occlusion_eval",
+             "implicit_depth_tpu_torch.models.bd_net", "implicit_depth_tpu_torch.weights"):
+    importlib.import_module(name)
+print("ok")
+"""
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO if cwd == REPO else "")
+    return subprocess.run([sys.executable] + args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_imports_without_jax():
+    proc = _run(["-c", _IMPORT_ALL], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20  # every module of the port was imported
+
+
+def test_chip_smoke_imports_without_yaml_or_pil():
+    proc = _run(["-c", _IMPORT_CHIP_SMOKE], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
+def test_chip_smoke_needs_a_cuda_device():
+    """Without a card the script exits non-zero and prints no result."""
+    import pytest
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run the port")
+    proc = _run(["chip_smoke.py"], REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run(["chip_smoke.py"], str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
