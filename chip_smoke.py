@@ -3,24 +3,44 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and the script exits non-zero:
-1. device:  the card's name and power limit (nvidia-smi).
-2. build:   nvcc builds the fused metadata-volume kernel from csrc/.
-3. kernel:  the CUDA kernel against its plain PyTorch version on the same
-            operands, at the flagship shape (B=1, K=7, C=16, H=96, W=128,
-            D=64, F=128) with f32 and bf16 features, and at a ragged shape;
-            max error against the stated tolerance, CUDA-event medians.
-4. main:    `evaluate_scenes` with the flagship BDNet (EfficientNetV2-S,
-            7 source views, 64 planes, 8 query planes, bf16, seeded random
-            weights) over 5 synthetic 512x384 tuples at b=1. The kernel's
-            launch count must equal the number of forwards; predictions must
-            be finite; the score dict must hold all/surface/boundary IoU.
-5. model:   `forward_val` of a flagship-width f32 BDNet on one small tuple,
-            on the GPU (kernel) against the CPU (plain version).
-Then one JSON line with the kernel's results and, last, the device line.
+Phases, one line each or a few; any failure raises and the script exits
+non-zero:
+1. device:      the card's name and power limit (nvidia-smi).
+2. build:       nvcc builds the three kernel libraries from
+                implicit_depth_tpu_torch/csrc/, one process per source, all at
+                once; the ptxas register and spill report of each.
+3. kernel:      the fused-volume forward (kernel #1) against its plain
+                PyTorch version, at the flagship shape (B=1, K=7, C=16, H=96,
+                W=128, D=64, F=128) with f32 and bf16 features, and at a
+                ragged shape; max error against the stated tolerance,
+                CUDA-event medians.
+4. kernel-bwd:  the fused-volume backward (kernel #2) against autograd of the
+                plain forward, at B=1 of the flagship shape (f32 and bf16
+                features) and at the ragged shape; per cotangent, the
+                relative L2 error and the share of elements outside the JAX
+                package's elementwise gradient bound; medians.
+5. kernel-ray:  the ray-head forward and backward (kernels #3, #4) against
+                their plain versions at b=12, N=4096, S=64 (bf16, with and
+                without the prior) and at a ragged N=100, S=13 (f32).
+6. main:        `evaluate_scenes` with the flagship BDNet (EfficientNetV2-S,
+                7 source views, 64 planes, 8 query planes, bf16, seeded
+                random weights) over 5 synthetic 512x384 tuples at b=1; kernel
+                #1 must launch once per forward.
+7. train:       `make_bd_train_step` on the flagship BDNet (bf16 autocast,
+                f32 parameters, seeded random weights) over b=12 synthetic
+                512x384 training tuples with N=4096 rays of S=64 samples: 6
+                steps on a device-resident batch; kernels #1, #2, #3, #4 must
+                launch 1, 1, 4, 4 times per step; losses finite, parameters
+                and BN running statistics moved; median step time and peak
+                device memory.
+8. train-model: one f32 train step of a flagship-width BDNet at 128x192,
+                b=1, N=256, S=64, flip on, on the GPU (kernels) and on the
+                CPU (plain versions) from the same weights and batch: loss
+                and parameter gradients against stated bounds.
+Then one JSON line with the four kernels' results and, last, the device line.
 
-The script imports torch, numpy, the port and the JAX package's numpy-only
-data modules; nothing of JAX.
+The script imports torch, numpy and the port; nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -34,9 +54,32 @@ import numpy as np
 import torch
 
 ATOL, RTOL = 2e-3, 1e-3  # kernel vs plain: f32 sums in another order (as the JAX test)
+# Volume backward vs autograd of the plain forward. Both sum in f32, in
+# other orders; where a pre-activation lies within rounding of 0 the two
+# take different LeakyReLU slopes (1 vs 0.01), which shows as isolated
+# large differences. So the bounds are on the relative L2 error of each
+# cotangent and, for the per-point cotangents (dsrc, dcur, dbase), on the
+# share of elements outside the JAX package's elementwise gradient bound
+# (atol 5e-3, rtol 5e-3, tests/test_fused_volume.py:170-176). A weight
+# gradient sums over every point, so each such tie moves a whole row of it:
+# there only the relative L2 error is bounded.
+VOL_REL_L2, VOL_OUTSIDE, VOL_ATOL, VOL_RTOL = 2e-2, 1e-2, 5e-3, 5e-3
+# Ray head: the forward's output takes fp's dtype; bf16 rounds the f32
+# result, so two ulps of bf16 (rtol 1e-2). The backward's cotangents are f32
+# from the same f32 math: 1e-4 of each cotangent's largest value.
+RAY_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-3, 1e-2)}
+RAY_BWD_REL = 1e-4
 FLAGSHIP = dict(B=1, K=7, H=96, W=128, D=64)
 RAGGED = dict(B=2, K=3, H=50, W=70, D=13)
+RAY_FLAGSHIP = dict(b=12, n=4096, s=64)
+RAY_RAGGED = dict(b=2, n=100, s=13)
 TIMED_RUNS = 20
+# the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
+# dense bf16 tensor-core FLOP/s; a bound is the larger of bytes / HBM and
+# FLOP / the bf16 peak (the kernels' work is matrix products)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+C_, F_ = 16, 128
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -64,22 +107,25 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from implicit_depth_tpu_torch.ops import fused_volume
+    from implicit_depth_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    lib = fused_volume.build()
-    log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-    ptxas = " | ".join(ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s; {ptxas}", flush=True)
+    libs = cuda_build.build()
+    print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s (one nvcc per "
+          "source, in parallel)", flush=True)
+    for source, lib in libs.items():
+        log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
+        ptxas = " | ".join(ln.strip().replace("ptxas info    : ", "") for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln)
+        print(f"  {source} -> {lib.name}: {ptxas}", flush=True)
 
 
 def volume_operands(B: int, K: int, H: int, W: int, D: int, dtype, seed: int = 0) -> tuple:
     """Seeded kernel operands on the GPU: random features and MLP weights,
     geometry from the synthetic fixture's poses and intrinsics."""
-    from implicit_depth_tpu.utils.fixtures import synthetic_bd_batch
     from implicit_depth_tpu_torch.core import geometry
     from implicit_depth_tpu_torch.models.volume_mlp import MetadataVolumeMLP, fused_operands
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
     from implicit_depth_tpu_torch.weights import init_params
 
     dev = torch.device("cuda")
@@ -128,10 +174,169 @@ def phase_kernel() -> dict:
             if shape is FLAGSHIP:
                 ms = cuda_ms(lambda: fused_metadata_volume(*ops))
                 plain_ms = cuda_ms(lambda: fused_metadata_volume_reference(*ops))
-                line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of {TIMED_RUNS})"
-                result[label] = {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms}
+                points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
+                b_ms, b_by = least_ms(nbytes(*ops, got), 2.0 * points * volume_fwd_macs(shape["K"]))
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of {TIMED_RUNS}), "
+                         f"bound {b_ms:.4f} ms ({b_by})")
+                result[label] = {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by}
             print(line, flush=True)
         del ops
+    return result
+
+
+def least_ms(nbytes: float, flops: float) -> tuple:
+    """(least ms, "bytes" or "operations") for the given work on this card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def volume_fwd_macs(K: int) -> int:
+    """Multiply-adds per (b, d, v, u) point of kernel #1: fc0 over the
+    K*(C+6) live inputs, fc1, fc2."""
+    return K * (C_ + 6) * F_ + F_ * F_ + F_
+
+
+def volume_bwd_macs(K: int) -> int:
+    """Kernel #2 per point: the forward again, dh1 and dW_fc1T (2 F^2),
+    dvis and dW_visT (2 K C F), dW_metaT (6 K F), ddot (K F), fc2 (F)."""
+    return volume_fwd_macs(K) + 2 * F_ * F_ + 2 * K * C_ * F_ + 7 * K * F_ + F_
+
+
+def _cotangent_stats(label: str, got, ref) -> float:
+    """Checks each cotangent of kernel #2 against its plain version;
+    returns the largest max-abs error."""
+    worst_l2, worst_out, worst_abs = (0.0, ""), (0.0, ""), 0.0
+    for name in got._fields:
+        a, r = getattr(got, name).float(), getattr(ref, name).float()
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"kernel-bwd {label}: {name} has shape {tuple(a.shape)} vs "
+                                 f"{tuple(r.shape)} or non-finite values")
+        d = (a - r).abs()
+        rel_l2 = (d.norm() / r.norm().clamp_min(1e-30)).item()
+        outside = 0.0
+        if name in ("dsrc", "dcur", "dbase"):
+            outside = (d > VOL_ATOL + VOL_RTOL * r.abs()).float().mean().item()
+        if rel_l2 > VOL_REL_L2 or outside > VOL_OUTSIDE:
+            raise AssertionError(f"kernel-bwd {label}: {name} disagrees with the plain version: "
+                                 f"relative L2 {rel_l2:.3e} (bound {VOL_REL_L2}), {outside:.3e} "
+                                 f"of elements outside the elementwise bound (bound {VOL_OUTSIDE})")
+        worst_l2 = max(worst_l2, (rel_l2, name))
+        worst_out = max(worst_out, (outside, name))
+        worst_abs = max(worst_abs, d.max().item())
+    print(f"kernel-bwd {label}: 10 cotangents; worst relative L2 {worst_l2[0]:.2e} ({worst_l2[1]}, "
+          f"bound {VOL_REL_L2}), worst share of per-point elements outside atol {VOL_ATOL} + "
+          f"rtol {VOL_RTOL} "
+          f"{worst_out[0]:.2e} ({worst_out[1]}, bound {VOL_OUTSIDE}), max_abs_err {worst_abs:.3e}",
+          flush=True)
+    return worst_abs
+
+
+def phase_kernel_bwd() -> dict:
+    from implicit_depth_tpu_torch.ops.fused_volume import (
+        fused_metadata_volume_bwd, fused_metadata_volume_bwd_reference)
+
+    result = {}
+    for label, shape, dtype in (("flagship f32", FLAGSHIP, torch.float32),
+                                ("flagship bf16", FLAGSHIP, torch.bfloat16),
+                                ("ragged f32", RAGGED, torch.float32),
+                                ("ragged bf16", RAGGED, torch.bfloat16)):
+        ops = volume_operands(**shape, dtype=dtype)[:14]
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        ct = torch.randn((shape["B"], shape["D"], shape["H"], shape["W"]), generator=gen,
+                         device="cuda")
+        got = fused_metadata_volume_bwd(ct, *ops)
+        ref = fused_metadata_volume_bwd_reference(ct, *ops)
+        torch.cuda.synchronize()
+        err = _cotangent_stats(label, got, ref)
+        if shape is FLAGSHIP:
+            ms = cuda_ms(lambda: fused_metadata_volume_bwd(ct, *ops))
+            plain_ms = cuda_ms(lambda: fused_metadata_volume_bwd_reference(ct, *ops), runs=5)
+            points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
+            b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got),
+                               2.0 * points * volume_bwd_macs(shape["K"]))
+            print(f"kernel-bwd {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (medians), "
+                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            result[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by}
+        del ops, got, ref
+    return result
+
+
+def ray_inputs(b: int, n: int, s: int, prior: bool, dtype, seed: int = 0) -> tuple:
+    """Seeded ray-head operands and an output cotangent on the GPU."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+
+    depths = (0.3 + 4.7 * torch.rand((b, n, s), generator=gen, device="cuda")).to(dtype)
+    ops = (rnd(b, n, F_, scale=0.5).to(dtype), depths,
+           rnd(b, n, s).to(dtype) if prior else None, rnd(F_, scale=0.2),
+           rnd(F_, scale=0.2) if prior else None, rnd(F_, F_, scale=0.09), rnd(F_, scale=0.05),
+           rnd(F_, 1, scale=0.09), rnd(1))
+    return ops, rnd(b, n, s).to(dtype)
+
+
+def phase_kernel_ray() -> dict:
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    result = {}
+    for label, shape, prior, dtype in (
+            ("flagship noprior bf16", RAY_FLAGSHIP, False, torch.bfloat16),
+            ("flagship prior bf16", RAY_FLAGSHIP, True, torch.bfloat16),
+            ("ragged noprior f32", RAY_RAGGED, False, torch.float32),
+            ("ragged prior f32", RAY_RAGGED, True, torch.float32)):
+        ops, ct = ray_inputs(**shape, prior=prior, dtype=dtype)
+        with torch.no_grad():
+            out = rh.ray_head_fwd(*ops)
+            ref = rh.ray_head_reference(*ops)
+        gk = rh.ray_head_bwd(ct, *ops[:-1])
+        gr = rh.ray_head_bwd_reference(ct, *ops[:-1])
+        torch.cuda.synchronize()
+        atol, rtol = RAY_TOL[dtype]
+        d = (out.float() - ref.float()).abs()
+        if out.shape != ref.shape or not torch.isfinite(out.float()).all() or \
+                (d > atol + rtol * ref.float().abs()).any():
+            raise AssertionError(f"kernel-ray {label}: forward disagrees with its plain version: "
+                                 f"max_abs_err {d.max().item():.3e}")
+        fwd_err, bwd_err = d.max().item(), 0.0
+        for name in gk._fields:
+            a, r = getattr(gk, name), getattr(gr, name)
+            if a is None and r is None:
+                continue
+            e = (a.reshape(r.shape) - r).abs().max().item()
+            if not e <= RAY_BWD_REL * r.abs().max().item() + 1e-6:
+                raise AssertionError(f"kernel-ray {label}: backward {name} disagrees with its "
+                                     f"plain version: max_abs_err {e:.3e}")
+            bwd_err = max(bwd_err, e)
+        line = (f"kernel-ray {label} b={shape['b']} N={shape['n']} S={shape['s']}: forward "
+                f"max_abs_err {fwd_err:.3e} (bound {atol} + {rtol}*|ref|), backward "
+                f"max_abs_err {bwd_err:.3e} (bound {RAY_BWD_REL}*max|ref|)")
+        if shape is RAY_FLAGSHIP and not prior:
+            with torch.no_grad():
+                f_ms = cuda_ms(lambda: rh.ray_head_fwd(*ops))
+                f_plain = cuda_ms(lambda: rh.ray_head_reference(*ops), runs=5)
+            b_ms_k = cuda_ms(lambda: rh.ray_head_bwd(ct, *ops[:-1]))
+            b_plain = cuda_ms(lambda: rh.ray_head_bwd_reference(ct, *ops[:-1]), runs=5)
+            rows = shape["b"] * shape["n"] * shape["s"]
+            fb = least_ms(nbytes(*ops, out), 2.0 * rows * (F_ * F_ + 3 * F_))
+            bb = least_ms(nbytes(*ops[:-1], ct) + nbytes(*(t for t in gk if t is not None)),
+                       2.0 * rows * (3 * F_ * F_ + 8 * F_))
+            line += (f"; forward kernel {f_ms:.3f} ms, plain {f_plain:.3f} ms, bound "
+                     f"{fb[0]:.4f} ms ({fb[1]}); backward kernel {b_ms_k:.3f} ms, plain "
+                     f"{b_plain:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]})")
+            result["fwd"] = {"max_abs_err": fwd_err, "ms": f_ms, "plain_ms": f_plain,
+                             "bound_ms": fb[0], "bound_by": fb[1]}
+            result["bwd"] = {"max_abs_err": bwd_err, "ms": b_ms_k, "plain_ms": b_plain,
+                             "bound_ms": bb[0], "bound_by": bb[1]}
+        print(line, flush=True)
+        del ops, ct, out, ref, gk, gr
     return result
 
 
@@ -144,7 +349,7 @@ def flagship_net(dtype, seed: int = 0):
 
 
 def phase_main() -> dict:
-    from implicit_depth_tpu.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
     from implicit_depth_tpu_torch.eval import binary_metrics as bm
     from implicit_depth_tpu_torch.eval.occlusion_eval import evaluate_scenes
     from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
@@ -176,7 +381,7 @@ def phase_main() -> dict:
 
 
 def phase_model() -> None:
-    from implicit_depth_tpu.utils.fixtures import synthetic_bd_batch
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
 
     net = flagship_net(torch.float32)
     cur, src = synthetic_bd_batch(batch=1, num_src=7, height=128, width=192, num_planes=8,
@@ -201,6 +406,181 @@ def phase_model() -> None:
           f"lowest_cost on the same plane for {same_lowest:.4f} of pixels", flush=True)
 
 
+def _launch_counts() -> tuple:
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    return (fvm.fused_metadata_volume.launches, fvm.fused_metadata_volume_bwd.launches,
+            rh.ray_head_fwd.launches, rh.ray_head_bwd.launches)
+
+
+def _zero_launch_counts() -> None:
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    for fn in (fvm.fused_metadata_volume, fvm.fused_metadata_volume_bwd, rh.ray_head_fwd,
+               rh.ray_head_bwd):
+        fn.launches = 0
+
+
+TRAIN_STEPS = 6
+
+
+def _train_run(batch_size: int) -> dict:
+    from implicit_depth_tpu_torch.data.mvs_dataset import BDSamplingConfig, collate
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.train import state
+
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(num_frames=batch_size + 7, num_views=8, image_height=384,
+                          image_width=512, split="train", get_bd_info=True,
+                          bd_config=BDSamplingConfig(num_rays=4096, samples_per_ray=64))
+    cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
+                for d in collate([ds[i] for i in range(batch_size)]))
+    data_s = time.perf_counter() - t0
+    net = flagship_net(torch.bfloat16).cuda()
+    opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
+    step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
+    watched = {"encoder.conv_stem.weight": net.encoder.conv_stem.weight,
+               "volume_mlp.fc0_kernel": net.volume_mlp.fc0_kernel,
+               "binary_mlp.s3_fc1.weight": net.binary_mlp.s3_fc1.weight,
+               "matching.bn1.running_var": net.matching.bn1.running_var,
+               "encoder.s5_b14.bn3.running_mean": net.encoder.s5_b14.bn3.running_mean}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step((cur, src))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    launches = _launch_counts()
+    moved = {k: not torch.equal(before[k], v.detach()) for k, v in watched.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    return {"b": batch_size, "launches": launches, "times": times, "losses": losses,
+            "moved": moved, "peak_gb": peak_gb, "data_s": data_s,
+            "profile": _profile_step(step, (cur, src))}
+
+
+def _profile_step(step, batch) -> dict:
+    """One more steady-state step under torch.profiler: its wall time, the
+    device time summed over kernels, and the largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and getattr(ev, "device_type", None) is not None and \
+                "cuda" in str(ev.device_type).lower():
+            kernels.append((dev_us / 1e3, ev.count, ev.key))
+    kernels.sort(reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": sum(k[0] for k in kernels), "top": kernels[:10]}
+
+
+def phase_train() -> dict:
+    """The training main path: 6 flagship train steps at b=12 (b=6 if 12
+    does not fit in device memory)."""
+    try:
+        res = _train_run(12)
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        print("train: b=12 does not fit in device memory; running b=6", flush=True)
+        res = _train_run(6)
+    n = TRAIN_STEPS
+    if res["launches"] != (n, n, 4 * n, 4 * n):
+        raise AssertionError(f"train: kernel launches (#1, #2, #3, #4) {res['launches']} over {n} "
+                             f"steps, expected {(n, n, 4 * n, 4 * n)}")
+    if not all(np.isfinite(v) for ls in res["losses"] for v in ls.values()):
+        raise AssertionError(f"train: non-finite losses {res['losses']}")
+    if not all(res["moved"].values()):
+        raise AssertionError(f"train: parameters or BN statistics did not move: {res['moved']}")
+    step_ms = float(np.median(res["times"][1:]))
+    print(f"train: {n} steps of make_bd_train_step (EfficientNetV2-S, K=7, D=64, bf16 autocast, "
+          f"f32 params, seeded random weights), b={res['b']} synthetic 512x384 tuples, N=4096, "
+          f"S=64 (data {res['data_s']:.1f} s): train_step_ms {step_ms:.1f} (median of steps "
+          f"2-{n}; all {', '.join(f'{t:.1f}' for t in res['times'])}), peak device memory "
+          f"{res['peak_gb']:.2f} GiB, launches #1/#2/#3/#4 {res['launches']}, loss "
+          f"{res['losses'][0]['loss']:.4f} -> {res['losses'][-1]['loss']:.4f}, moved "
+          f"{sorted(res['moved'])}", flush=True)
+    prof = res["profile"]
+    print(f"train profile (one more step under torch.profiler): wall {prof['wall_ms']:.1f} ms, "
+          f"device kernels {prof['device_ms']:.1f} ms (device idle "
+          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time:",
+          flush=True)
+    for ms, count, name in prof["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+    return {"launches": res["launches"], "train_step_ms": step_ms, "peak_gb": res["peak_gb"],
+            "b": res["b"]}
+
+
+# GPU (kernels) vs CPU (plain versions), one f32 step from the same weights:
+# the loss to 1e-4 relative; the gradients to 1e-2 relative L2 over all
+# parameters together and, per parameter, max|diff| <= 5e-2 max|ref|,
+# skipping parameters whose gradient is below 1e-6 of the largest (biases
+# that instance norm cancels: their gradient is rounding noise). Why that
+# loose: f32 sums in other orders, and the LeakyReLU slope ties of the
+# volume MLP (~25 M pre-activations here), amplified through the backward
+# of ~60 layers; on the CPU two f32 implementations of the JAX step differ
+# by up to ~8e-3 per parameter and each is ~4e-3 from a float64 run
+# (tests/test_torch_train.py). Measured here: 1.2e-3 and 3.2e-2.
+MODEL_LOSS_REL, MODEL_GRAD_L2, MODEL_GRAD_LEAF = 1e-4, 1e-2, 5e-2
+
+
+def phase_train_model() -> None:
+    import copy
+
+    from implicit_depth_tpu_torch.ops import image as image_ops
+    from implicit_depth_tpu_torch.train import state
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+
+    net = flagship_net(torch.float32)
+    cur, src = synthetic_bd_batch(batch=1, num_src=7, height=128, width=192, num_rays=256,
+                                  samples_per_ray=64, seed=2)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        n = copy.deepcopy(net).to(dev)
+        opt, sched = state.make_optimizer(n.parameters(), lr=1e-4, wd=1e-4)
+        # the edge mask's quantile threshold can flip a pixel between two
+        # devices' rounding, which moves the regulariser by a whole ray:
+        # compared on its own below
+        step = state.make_bd_train_step(n, opt, sched, edge_regularisation=False)
+        batch = ({k: torch.tensor(v, device=dev) for k, v in cur.items()},
+                 {k: torch.tensor(v, device=dev) for k, v in src.items()})
+        losses = step(batch, flip=True)
+        runs[dev] = (float(losses["loss"]),
+                     {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()},
+                     image_ops.get_edge_mask(batch[0]["gt_depth"]).cpu())
+    (l_cpu, g_cpu, e_cpu), (l_gpu, g_gpu, e_gpu) = runs["cpu"], runs["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
+    den = sum((g ** 2).sum().item() for g in g_cpu.values())
+    grad_l2 = (num / den) ** 0.5
+    leaf = max(((g_gpu[k] - g).abs().max().item() / g.abs().max().item(), k)
+               for k, g in g_cpu.items() if g.abs().max().item() >= 1e-6 * gmax)
+    edge_diff = (e_gpu != e_cpu).float().mean().item()
+    print(f"train-model: one f32 train step, flagship-width BDNet at 128x192, b=1, N=256, S=64, "
+          f"flip on, GPU (kernels) vs CPU (plain versions): loss {l_gpu:.6f} vs {l_cpu:.6f} "
+          f"(relative {loss_rel:.2e}, bound {MODEL_LOSS_REL}); gradients relative L2 "
+          f"{grad_l2:.2e} (bound {MODEL_GRAD_L2}), worst parameter {leaf[1]} {leaf[0]:.2e} "
+          f"(bound {MODEL_GRAD_LEAF}); edge mask pixels differing {edge_diff:.2e}", flush=True)
+    if not (loss_rel <= MODEL_LOSS_REL and grad_l2 <= MODEL_GRAD_L2
+            and leaf[0] <= MODEL_GRAD_LEAF and edge_diff <= 1e-2):
+        raise AssertionError("train-model: the GPU train step disagrees with the CPU one")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU only",
@@ -213,18 +593,26 @@ def main() -> int:
     phase_device()
     phase_build()
     kern = phase_kernel()
-    main_res = phase_main()
+    kern_bwd = phase_kernel_bwd()
+    kern_ray = phase_kernel_ray()
+    phase_main()
     phase_model()
+    train_res = phase_train()
+    phase_train_model()
+    csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
+    rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
+             kern["flagship bf16"], train_res["launches"][0]),
+            ("fused_metadata_volume_bwd", "fused_volume_bwd.cu", "fused_volume.py:349",
+             kern_bwd["flagship bf16"], train_res["launches"][1]),
+            ("ray_head_fwd", "ray_head.cu", "ray_head.py:142", kern_ray["fwd"],
+             train_res["launches"][2]),
+            ("ray_head_bwd", "ray_head.cu", "ray_head.py:161", kern_ray["bwd"],
+             train_res["launches"][3]))
     print(json.dumps({"kernels": [{
-        "name": "fused_metadata_volume",
-        "route": "cuda",
-        "source": "implicit_depth_tpu_torch/csrc/fused_volume.cu",
-        "replaces": "implicit_depth_tpu/ops/fused_volume.py:90",
-        "launches": main_res["launches"],
-        "max_abs_err": kern["flagship bf16"]["max_abs_err"],
-        "ms": kern["flagship bf16"]["ms"],
-        "plain_ms": kern["flagship bf16"]["plain_ms"],
-    }]}))
+        "name": name, "route": "cuda", "source": csrc + source, "replaces": tpu + replaces,
+        "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None} for name, source, replaces, r, launches in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,13 +8,16 @@ Layouts: the functions the tests hold against the JAX package (geometry,
 sampling, the volume, `BDNet.forward_val`, the metrics) take the JAX
 package's NHWC tensors; the conv stacks inside the models run in NCHW.
 
-Host-side numpy code of the JAX package is reused, not ported:
-`implicit_depth_tpu.data.{synthetic,mvs_dataset,loader,registry}` and
-`implicit_depth_tpu.utils.fixtures` import no JAX.
+The port imports nothing of the JAX package. The host-side numpy modules
+it needs are copies with only their imports changed (`config`, `data/`,
+`utils/`), each naming its original.
 
-The one hand-written kernel of the dense eval path is
-`ops/fused_volume.py::fused_metadata_volume` (CUDA C++ in
-`csrc/fused_volume.cu`, built with nvcc at its first CUDA call).
+Paths: the dense occlusion eval (`BDNet.forward_val`, `cli/test_bd.py`) and
+BD training (`BDNet.forward`, `train/state.py`, `train/loop.py::fit`,
+`cli/train_bd.py`). Their hand-written CUDA kernels (csrc/, built with nvcc
+by ops/cuda_build.py at the first CUDA call): the fused metadata volume
+forward and backward (`ops/fused_volume.py`) and the ray-head MLP forward
+and backward (`ops/ray_head.py`).
 """
 
 __version__ = "0.1.0"

@@ -15,39 +15,18 @@ CPU.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from implicit_depth_tpu.config import Config, _coerce, build_parser, load_yaml_options, merge_dict
-from implicit_depth_tpu.data.registry import get_dataset
+from implicit_depth_tpu_torch.config import parse_config
+from implicit_depth_tpu_torch.data.registry import get_dataset
 from implicit_depth_tpu_torch.eval import binary_metrics as bm
 from implicit_depth_tpu_torch.eval.occlusion_eval import evaluate_scenes
 from implicit_depth_tpu_torch.models.bd_net import TRAIN_ONLY_PREFIXES
 from implicit_depth_tpu_torch.train.loop import build_dataset, build_net
 from implicit_depth_tpu_torch.weights import load_state_dict
-
-
-def parse_config(argv=None) -> tuple[Config, str]:
-    """Model config file, then data config file, then CLI flags; later
-    wins (the JAX package's parse_and_merge, without its JAX compile
-    cache). Returns (config, device)."""
-    parser = build_parser()
-    parser.add_argument("--device", type=str, default="cuda")
-    args = parser.parse_args(argv)
-    cfg = Config()
-    for path in (args.config_file, args.data_config_file):
-        if path:
-            merge_dict(cfg, load_yaml_options(path), source=path)
-    for f in dataclasses.fields(Config):
-        raw = getattr(args, f.name, None)
-        if raw is True:
-            setattr(cfg, f.name, True)
-        elif isinstance(raw, str):
-            setattr(cfg, f.name, _coerce(f.name, raw))
-    return cfg, args.device
 
 
 def main(argv=None) -> dict:

@@ -26,73 +26,13 @@
 // stage the weights once and walk the points with a grid-stride loop.
 // f32 FMA accumulation throughout; tensor-core MMAs are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_volume_common.cuh"
 
 namespace {
 
-constexpr int C = 16;       // matching channels
-constexpr int F = 128;      // MLP width
-constexpr int NMETA = 6;    // live metadata rows per view: z, dot, angle, ray xyz
+using namespace fv;
+
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// val[c] += w * p[c] for the 16 channels at p (16-byte aligned)
-__device__ __forceinline__ void accum16(const float* p, float w, float* val) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 t = __ldg(q + i);
-    val[4 * i + 0] += w * t.x;
-    val[4 * i + 1] += w * t.y;
-    val[4 * i + 2] += w * t.z;
-    val[4 * i + 3] += w * t.w;
-  }
-}
-
-__device__ __forceinline__ void accum16(const __nv_bfloat16* p, float w, float* val) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint4 t = __ldg(q + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      val[8 * i + 2 * j + 0] += w * f.x;
-      val[8 * i + 2 * j + 1] += w * f.y;
-    }
-  }
-}
-
-// sum_c val[c] * p[c]
-template <typename T>
-__device__ __forceinline__ float dot16(const T* p, const float* val) {
-  float probe[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) probe[c] = 0.f;
-  accum16(p, 1.f, probe);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < C; ++c) s += probe[c] * val[c];
-  return s;
-}
-
-// h[f] += x * w[f] for one input, w a 16-byte aligned row of F floats in shared memory
-__device__ __forceinline__ void axpy_row(float x, const float* w, float* h) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int i = 0; i < F / 4; ++i) {
-    const float4 t = w4[i];
-    h[4 * i + 0] += x * t.x;
-    h[4 * i + 1] += x * t.y;
-    h[4 * i + 2] += x * t.z;
-    h[4 * i + 3] += x * t.w;
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) fused_volume_kernel(
@@ -172,40 +112,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_volume_kernel(
 
     for (int k = 0; k < K; ++k) {
       const int bk = bi * K + k;
-      const float* a = A + bk * 9;
-      const float* bb = bvec + bk * 3;
-      const float* o = origins + bk * 3;
-
-      const float bx = a[0] * uu + (a[1] * vv + a[2]);
-      const float by = a[3] * uu + (a[4] * vv + a[5]);
-      const float bz = a[6] * uu + (a[7] * vv + a[8]);
-      const float xr = dep * bx + bb[0];
-      const float yr = dep * by + bb[1];
-      const float z = fmaxf(dep * bz + bb[2], 1e-5f);
-      const float x = fminf(fmaxf(xr / z - 0.5f, -2.f * W), 2.f * W);
-      const float y = fminf(fmaxf(yr / z - 0.5f, -2.f * H), 2.f * H);
-
-      // bilinear taps with zeros padding
-      const float x0f = floorf(x), y0f = floorf(y);
-      const float fx = x - x0f, fy = y - y0f;
-      const int x0 = (int)x0f, y0 = (int)y0f;
-      const T* img = src + (long long)bk * HW * C;
+      const ViewSample sp = warp_point(A + bk * 9, bvec + bk * 3, uu, vv, dep, H, W);
       float val[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) val[c] = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int yi = y0 + dy;
-        if (yi < 0 || yi >= H) continue;
-        const float wy = dy ? fy : 1.f - fy;
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const int xi = x0 + dx;
-          if (xi < 0 || xi >= W) continue;
-          const float wx = dx ? fx : 1.f - fx;
-          accum16(img + ((long long)yi * W + xi) * C, wx * wy, val);
-        }
-      }
+      sample16(src + (long long)bk * HW * C, sp.x, sp.y, H, W, val);
 
       // fc0 rows of the warped source visuals
       const float* wv = s_vis + k * C * F;
@@ -213,19 +122,15 @@ __global__ void __launch_bounds__(THREADS, 1) fused_volume_kernel(
       for (int c = 0; c < C; ++c) axpy_row(val[c], wv + c * F, h);
 
       // closed-form metadata
-      const float dotp = dot16(curp, val);
-      const float ro = r0 * o[0] + r1 * o[1] + r2 * o[2];
-      const float oo = o[0] * o[0] + o[1] * o[1] + o[2] * o[2];
-      const float n2 = dep * dep * rn2 - 2.f * dep * ro + oo;
-      const float invn = rsqrtf(fmaxf(n2, 1e-10f));
-      const float angle = (dep * rn2 - ro) * rinv * invn;
+      float m[4];
+      view_rays(r0, r1, r2, rn2, rinv, origins + bk * 3, dep, m);
       const float* wm = s_meta + k * NMETA * F;
-      axpy_row(z, wm + 0 * F, h);
-      axpy_row(dotp, wm + 1 * F, h);
-      axpy_row(angle, wm + 2 * F, h);
-      axpy_row((r0 * dep - o[0]) * invn, wm + 3 * F, h);
-      axpy_row((r1 * dep - o[1]) * invn, wm + 4 * F, h);
-      axpy_row((r2 * dep - o[2]) * invn, wm + 5 * F, h);
+      axpy_row(sp.z, wm + 0 * F, h);
+      axpy_row(dot16(curp, val), wm + 1 * F, h);
+      axpy_row(m[0], wm + 2 * F, h);
+      axpy_row(m[1], wm + 3 * F, h);
+      axpy_row(m[2], wm + 4 * F, h);
+      axpy_row(m[3], wm + 5 * F, h);
     }
 
 #pragma unroll

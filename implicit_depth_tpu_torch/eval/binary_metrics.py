@@ -101,6 +101,27 @@ def plane_scores(query_bhwd: Tensor, gt_bhw1: Tensor, pred_bhwd: Tensor, thresho
     return {"iou": iou, "iou_pos": iou_pos, "iou_neg": iou_neg}
 
 
+def legacy_and_new_iou(query_bhwd: Tensor, gt_bhw1: Tensor, sigmoid_pred_bhwd: Tensor,
+                       threshold: float = 0.5) -> dict:
+    """Training-time validation IoUs: the legacy single IoU over every
+    plane with gt > 0.5, and the pos/neg/harmonic plane IoUs averaged over
+    planes, then batch (NaN-skipping)."""
+    gt = gt_bhw1.expand_as(query_bhwd)
+    mask = gt > 0.5
+    target = (query_bhwd < gt) & mask
+    pred = (sigmoid_pred_bhwd > threshold) & mask
+    inter = (target & pred).sum(dim=(0, 1, 2)).float()
+    union = (target | pred).sum(dim=(0, 1, 2)).float()
+    legacy = torch.nanmean(inter / union)
+    nan = torch.tensor(float("nan"), device=gt_bhw1.device)
+    s = plane_scores(query_bhwd, torch.where(gt_bhw1 > 0, gt_bhw1, nan), sigmoid_pred_bhwd,
+                     threshold)
+    return {"iou": legacy,
+            "pos_iou": torch.nanmean(torch.nanmean(s["iou_pos"], dim=1)),
+            "neg_iou": torch.nanmean(torch.nanmean(s["iou_neg"], dim=1)),
+            "harmonic_iou": torch.nanmean(torch.nanmean(s["iou"], dim=1))}
+
+
 def scores_to_dict(scores: dict, thresholds=None,
                    depth_planes: Sequence[float] = DEFAULT_PLANES,
                    tag: Optional[str] = None, is_rendering: bool = False,

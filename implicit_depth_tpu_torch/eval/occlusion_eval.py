@@ -1,7 +1,7 @@
 """Dense occlusion (binary-depth) evaluation loop, counterpart of
 implicit_depth_tpu/eval/occlusion_eval.py (the non-binary path).
 
-The host loop feeds batches from the JAX package's numpy BatchLoader,
+The host loop feeds batches from the port's numpy BatchLoader,
 runs `BDNet.forward_val`, scores all/surface/boundary IoU on the device and
 averages per scene. `model_time` follows the reference protocol: forward
 wall time per frame at steady state (the first batch, which builds the
@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from implicit_depth_tpu_torch.data.loader import BatchLoader
 from implicit_depth_tpu_torch.eval import binary_metrics as bm
 from implicit_depth_tpu_torch.eval.metrics import ResultsAverager
 from implicit_depth_tpu_torch.models.blocks import resize_bilinear
@@ -96,8 +97,6 @@ def evaluate_scenes(
     frame, first batch skipped), "forwards", "launches" (fused volume
     kernel launches during the loop), "nonfinite_preds"}.
     """
-    from implicit_depth_tpu.data.loader import BatchLoader
-
     device = next(net.parameters()).device
     fwd = make_forward_fn(net, sigmoid_multiplier)
     if thresholder is not None:

@@ -8,7 +8,7 @@ column's output per scale, the one the reference keeps.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -107,4 +107,34 @@ class BinaryMLPNetwork(nn.Module):
             x = F.elu(getattr(self, f"s{s}_fc0")(inputs[s]))
             x = F.elu(getattr(self, f"s{s}_fc1")(x))
             outputs[f"pred_{s}"] = getattr(self, f"s{s}_fc2")(x)
+        return outputs
+
+    def factored(self, feats: Sequence[Tensor], depths: Sequence[Tensor],
+                 priors: Optional[Sequence[Tensor]] = None) -> dict:
+        """The same map as forward on concat([depth, feat, prior]) inputs,
+        with fc0 distributed over the concat: the feature term
+        fp = feat @ W0[1:1+c] + b0 is computed once per ray in the features'
+        dtype, and the per-sample chain elu(fp + d k0d [+ p k0p]) -> fc1 ->
+        elu -> fc2 runs as ops/ray_head.py::ray_head_mlp (kernels on CUDA
+        tensors, the plain version on CPU tensors). fc0 row 0 is the depth
+        row and row 1+c the prior row. feats[s] (b, N_s, c_s), depths[s] and
+        priors[s] (b, N_s, S). Returns {"pred_s": (b, N_s, S)} in the
+        features' dtype."""
+        from implicit_depth_tpu_torch.ops.ray_head import ray_head_mlp
+
+        outputs = {}
+        for s in range(len(feats)):
+            fc0, fc1, fc2 = (getattr(self, f"s{s}_fc{i}") for i in range(3))
+            feat = feats[s]
+            dt = feat.dtype
+            c = feat.shape[-1]
+            k0 = fc0.weight.t()  # (1 + c [+ 1], 128), (in, out)
+            fp = feat @ k0[1: 1 + c].to(dt) + fc0.bias.to(dt)
+            outputs[f"pred_{s}"] = ray_head_mlp(
+                fp.contiguous(), depths[s].to(dt).contiguous(),
+                None if priors is None else priors[s].to(dt).contiguous(),
+                k0[0].float().contiguous(),
+                None if priors is None else k0[1 + c].float().contiguous(),
+                fc1.weight.t().float().contiguous(), fc1.bias.float(),
+                fc2.weight.t().float().contiguous(), fc2.bias.float())
         return outputs

@@ -20,8 +20,14 @@ Tensor = torch.Tensor
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm (running statistics), computed in f32 whatever
-    the input dtype. Parameters weight/bias, buffers running_mean/var."""
+    """Batch norm with flax `nn.BatchNorm(momentum=0.9)` semantics, following
+    `self.training`. Eval: running statistics. Train: the batch mean and the
+    biased batch variance, statistics and normalisation in f32 whatever the
+    input dtype, and the running statistics move as 0.9 old + 0.1 batch,
+    with the biased variance (torch.nn.BatchNorm2d would use the unbiased
+    one). Parameters weight/bias, buffers running_mean/var."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -32,6 +38,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.training:
+            x32 = x.float()
+            var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+            scale = self.weight.float() * torch.rsqrt(var + self.eps)
+            y = (x32 - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
+            return y.to(x.dtype)
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]

@@ -200,3 +200,27 @@ class MetadataVolumeMLP(nn.Module):
             self.params_dict(), cur_feats_bhwc, src_feats_bkhwc, src_K_bk44,
             src_T_cur_bk44, cur_invK_b44, cur_T_src_bk44, planes_d,
             k=self.num_src_views, c=self.matching_dim, hidden=self.hidden)
+
+    def fused_train(self, cur_feats_bhwc: Tensor, src_feats_bkhwc: Tensor, src_K_bk44: Tensor,
+                    src_T_cur_bk44: Tensor, cur_invK_b44: Tensor, cur_T_src_bk44: Tensor,
+                    planes_d: Tensor) -> Tensor:
+        """The differentiable volume (b, d, h, w) f32 of the training path:
+        ops/fused_volume.py::fused_metadata_volume_train, forward kernel #1
+        and backward kernel #2 over the operands. Autograd carries the
+        operand gradients to the parameters and the current features
+        through `_weight_operands` (the `base` map and the repacked
+        weights); the current features' dot-metadata gradient from the
+        kernel adds to it. The geometry is a constant."""
+        from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume_train
+
+        k, c = self.num_src_views, self.matching_dim
+        A, b, origins, invK3 = _geometry_operands(
+            src_K_bk44.float(), src_T_cur_bk44.float(), cur_invK_b44.float(),
+            cur_T_src_bk44.float())
+        weights = _weight_operands(self.params_dict(), cur_feats_bhwc, invK3,
+                                   cur_T_src_bk44.float(), k=k, c=c, hidden=self.hidden)
+        cdt = src_feats_bkhwc.dtype
+        return fused_metadata_volume_train(
+            cur_feats_bhwc.to(cdt).contiguous(), src_feats_bkhwc.contiguous(), A.contiguous(),
+            b.contiguous(), origins.contiguous(), invK3.contiguous(),
+            planes_d.float().contiguous(), *weights)

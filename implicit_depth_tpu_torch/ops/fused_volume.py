@@ -1,9 +1,11 @@
 """Fused metadata volume: plane-sweep warp + closed-form metadata + the
-202 -> 128 -> 128 -> 1 MLP, one hand-written CUDA kernel (eval path).
+202 -> 128 -> 128 -> 1 MLP, as hand-written CUDA kernels, forward and
+backward.
 
-Replaces the TPU kernel implicit_depth_tpu/ops/fused_volume.py::
-_fused_kernel (wrapper `fused_metadata_volume`). The kernel is in
-csrc/fused_volume.cu; this module holds
+Replaces the TPU kernels implicit_depth_tpu/ops/fused_volume.py::
+_fused_kernel (wrapper `fused_metadata_volume`) and `_fused_bwd_kernel`
+(wrapper `fused_metadata_volume_bwd`). The kernels are csrc/fused_volume.cu
+and csrc/fused_volume_bwd.cu; this module holds
 
 - `fused_metadata_volume`: the dispatch wrapper. A CPU tensor goes to the
   plain version; a CUDA tensor launches the kernel or raises. Its
@@ -12,8 +14,16 @@ csrc/fused_volume.cu; this module holds
   operands, built from the port's warp (volumes/cost_volume.py) and the
   repacked first-layer weights. The CPU tests and chip_smoke.py compare
   against it.
-- `build`: nvcc into a shared library with a plain C entry point, keyed on
-  a hash of the sources and flags, in csrc/build/, at the first CUDA call.
+- `fused_metadata_volume_bwd`: the backward's dispatch wrapper (the VJP
+  w.r.t. the tensor operands), with its own `launches` count, and
+  `fused_metadata_volume_bwd_reference`, its plain version (autograd of
+  the plain forward).
+- `fused_metadata_volume_train`: a `torch.autograd.Function` over the
+  operands whose forward is the forward wrapper and whose backward is the
+  backward wrapper. Geometry (A, b, origins, invK, planes) gets no
+  gradient: it is a constant of the training graph.
+
+Libraries are built by ops/cuda_build.py at the first CUDA call.
 
 Operands (the TPU kernel's contract): cur (B,H,W,C) and src (B,K,H,W,C)
 in the compute dtype (f32 or bf16); A (B,K,3,3), b and origins (B,K,3),
@@ -25,73 +35,34 @@ the compute dtype. Output (B,D,H,W) f32.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from implicit_depth_tpu_torch.ops import cuda_build
 from implicit_depth_tpu_torch.volumes.cost_volume import warped_views_from_components
 
 Tensor = torch.Tensor
 
-CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC_DIR / "build"
-SOURCES = ("fused_volume.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CHANNELS = 16   # matching feature channels the kernel is compiled for
-HIDDEN = 128    # MLP width the kernel is compiled for
-SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may opt in to
+CHANNELS = 16   # matching feature channels the kernels are compiled for
+HIDDEN = 128    # MLP width the kernels are compiled for
+SMEM_LIMIT = cuda_build.SMEM_LIMIT
 
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin); "
-                           "the fused volume kernel cannot be built")
-    return path
+_PTR = ctypes.c_void_p
+_SIGNATURES = {
+    "fused_volume.cu": {
+        name: ([_PTR] * 16 + [ctypes.c_int] * 5 + [_PTR], ctypes.c_int)
+        for name in ("fused_metadata_volume_f32", "fused_metadata_volume_bf16")},
+    "fused_volume_bwd.cu": {
+        **{name: ([_PTR] * 20 + [ctypes.c_int] * 6 + [_PTR], ctypes.c_int)
+           for name in ("fused_metadata_volume_bwd_f32", "fused_metadata_volume_bwd_bf16")},
+        "fused_metadata_volume_bwd_slab_len": ([ctypes.c_int], ctypes.c_longlong)},
+}
 
 
-def build() -> Path:
-    """Compiles csrc/fused_volume.cu for sm_90a unless a library built from
-    the same sources and flags exists. Returns the library's path; the
-    compiler's output (ptxas register and spill counts) is written beside
-    it with the suffix .log. Raises with nvcc's stderr on failure."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        digest.update((CSRC_DIR / name).read_bytes())
-    out = BUILD_DIR / f"libfused_volume_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("fused_metadata_volume_f32", "fused_metadata_volume_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _library(source: str):
+    return cuda_build.load(source, _SIGNATURES[source])
 
 
 def _check_operands(cur, src, A, b, origins, invK, planes, base, w_visT, w_metaT,
@@ -124,6 +95,8 @@ def _check_operands(cur, src, A, b, origins, invK, planes, base, w_visT, w_metaT
         "b_fc2": (b_fc2, (1,), f32),
     }
     for name, (t, shape, dtype) in spec.items():
+        if t is None:  # the backward takes no b_fc2
+            continue
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if t.dtype != dtype:
@@ -138,10 +111,21 @@ def _check_operands(cur, src, A, b, origins, invK, planes, base, w_visT, w_metaT
 
 
 def smem_bytes(num_views: int) -> int:
-    """Dynamic shared memory of one kernel block: f32 fc0 columns for the
+    """Dynamic shared memory of one forward block: f32 fc0 columns for the
     source visuals and the six metadata rows of every view, fc1, and the
     three F-vectors."""
     return 4 * (num_views * (CHANNELS + 6) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN)
+
+
+BWD_TILE = 64  # pixels per backward tile (= threads per block)
+
+
+def bwd_smem_bytes(num_views: int) -> int:
+    """Dynamic shared memory of one backward block: the forward's weights
+    plus the X (tile x F+4) and Y stages (csrc/fused_volume_bwd.cu)."""
+    n = max(HIDDEN, num_views * CHANNELS + -(-num_views * 6 // 8) * 8)
+    ys = n + (4 - n % 8 + 8) % 8
+    return smem_bytes(num_views) + 4 * BWD_TILE * (HIDDEN + 4 + ys)
 
 
 def _launch(ops: tuple, dims: tuple) -> Tensor:
@@ -150,18 +134,15 @@ def _launch(ops: tuple, dims: tuple) -> Tensor:
         raise ValueError(f"the kernel is compiled for C={CHANNELS}, F={HIDDEN}; got C={C}, F={F_}")
     if smem_bytes(K) > SMEM_LIMIT:
         raise ValueError(f"K={K} source views need {smem_bytes(K)} bytes of shared memory")
-    for t in ops:
-        if t.data_ptr() % 16:
-            raise ValueError("operands must be 16-byte aligned")
+    cuda_build.check_aligned(ops, "fused_metadata_volume")
     out = torch.empty((B, D, H, W), dtype=torch.float32, device=ops[0].device)
-    lib = _library()
+    lib = _library("fused_volume.cu")
     fn = (lib.fused_metadata_volume_f32 if ops[1].dtype == torch.float32
           else lib.fused_metadata_volume_bf16)
     stream = torch.cuda.current_stream(ops[0].device).cuda_stream
     with torch.cuda.device(ops[0].device):
         err = fn(*(t.data_ptr() for t in ops), out.data_ptr(), B, K, H, W, D, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_metadata_volume kernel launch failed: CUDA error {err}")
+    cuda_build.check(err, "fused_metadata_volume")
     fused_metadata_volume.launches += 1
     return out
 
@@ -210,3 +191,135 @@ def fused_metadata_volume_reference(cur: Tensor, src: Tensor, A: Tensor, b: Tens
     h1 = F.leaky_relu(h1, 0.01)
     h2 = F.leaky_relu(h1 @ w_fc1T.float().t() + b_fc1[:, 0], 0.01)
     return (h2 @ w_fc2 + b_fc2)[..., 0]
+
+
+class FusedVolumeCotangents(NamedTuple):
+    """The VJP of `fused_metadata_volume` w.r.t. its tensor operands, all f32
+    (the JAX package's bundle of the same name)."""
+
+    dsrc: Tensor     # (B, K, H, W, C)
+    dcur: Tensor     # (B, H, W, C), the dot-metadata path only
+    dbase: Tensor    # (B, H, F, W)
+    dw_visT: Tensor  # (F, K*C)
+    dw_metaT: Tensor  # (F, K*8)
+    dw_plane: Tensor  # (F, 1)
+    dw_fc1T: Tensor  # (F, F)
+    db_fc1: Tensor   # (F, 1)
+    dw_fc2: Tensor   # (F, 1)
+    db_fc2: Tensor   # (1,)
+
+
+def _launch_bwd(ct: Tensor, ops: tuple, dims: tuple) -> FusedVolumeCotangents:
+    B, K, H, W, C, D, F_ = dims
+    if C != CHANNELS or F_ != HIDDEN:
+        raise ValueError(f"the kernel is compiled for C={CHANNELS}, F={HIDDEN}; got C={C}, F={F_}")
+    if bwd_smem_bytes(K) > SMEM_LIMIT:
+        raise ValueError(f"K={K} source views need {bwd_smem_bytes(K)} bytes of shared memory "
+                         "in the backward")
+    cuda_build.check_aligned(ops + (ct,), "fused_metadata_volume_bwd")
+    dev = ct.device
+    lib = _library("fused_volume_bwd.cu")
+    slab = lib.fused_metadata_volume_bwd_slab_len(K)
+    nslabs = max(1, min(-(-(B * H * W) // BWD_TILE), cuda_build.sm_count(dev)))
+    f32 = torch.float32
+    dbase = torch.zeros((B, H, F_, W), dtype=f32, device=dev)
+    dcur = torch.empty((B, H, W, C), dtype=f32, device=dev)
+    dsrc = torch.zeros((B, K, H, W, C), dtype=f32, device=dev)
+    slabs = torch.zeros((nslabs, slab), dtype=f32, device=dev)
+    grads = torch.empty((slab,), dtype=f32, device=dev)
+    fn = (lib.fused_metadata_volume_bwd_f32 if ops[1].dtype == f32
+          else lib.fused_metadata_volume_bwd_bf16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in ops), ct.data_ptr(), dbase.data_ptr(),
+                 dcur.data_ptr(), dsrc.data_ptr(), slabs.data_ptr(), grads.data_ptr(),
+                 nslabs, B, K, H, W, D, stream)
+    cuda_build.check(err, "fused_metadata_volume_bwd")
+    fused_metadata_volume_bwd.launches += 1
+    sizes = (F_ * F_, F_ * K * C, F_ * K * 8, F_, F_, F_, 1)
+    fc1, vis, meta, plane, b1, w2, b2 = torch.split(grads[:sum(sizes)], sizes)
+    return FusedVolumeCotangents(
+        dsrc=dsrc, dcur=dcur, dbase=dbase, dw_visT=vis.view(F_, K * C),
+        dw_metaT=meta.view(F_, K * 8), dw_plane=plane.view(F_, 1), dw_fc1T=fc1.view(F_, F_),
+        db_fc1=b1.view(F_, 1), dw_fc2=w2.view(F_, 1), db_fc2=b2.view(1))
+
+
+def fused_metadata_volume_bwd(ct: Tensor, cur: Tensor, src: Tensor, A: Tensor, b: Tensor,
+                              origins: Tensor, invK: Tensor, planes: Tensor, base: Tensor,
+                              w_visT: Tensor, w_metaT: Tensor, w_plane: Tensor,
+                              w_fc1T: Tensor, b_fc1: Tensor,
+                              w_fc2: Tensor) -> FusedVolumeCotangents:
+    """VJP of `fused_metadata_volume` for the (B, D, H, W) f32 cotangent
+    `ct`, w.r.t. its tensor operands (the geometry gets none). CUDA tensors
+    run the kernel; CPU tensors run `fused_metadata_volume_bwd_reference`."""
+    ops = (cur, src, A, b, origins, invK, planes, base, w_visT, w_metaT, w_plane,
+           w_fc1T, b_fc1, w_fc2)
+    dims = _check_operands(*ops, None)
+    B, K, H, W, C, D, F_ = dims
+    if tuple(ct.shape) != (B, D, H, W) or ct.dtype != torch.float32:
+        raise ValueError(f"ct must be ({B}, {D}, {H}, {W}) float32, got {tuple(ct.shape)} {ct.dtype}")
+    if ct.device != src.device or not ct.is_contiguous():
+        raise ValueError("ct must be contiguous and on the operands' device")
+    if src.device.type == "cuda":
+        return _launch_bwd(ct, ops, dims)
+    if src.device.type != "cpu":
+        raise ValueError(f"no fused volume backward for device {src.device}")
+    return fused_metadata_volume_bwd_reference(ct, *ops)
+
+
+fused_metadata_volume_bwd.launches = 0
+
+
+def fused_metadata_volume_bwd_reference(ct: Tensor, cur: Tensor, src: Tensor, A: Tensor,
+                                        b: Tensor, origins: Tensor, invK: Tensor,
+                                        planes: Tensor, base: Tensor, w_visT: Tensor,
+                                        w_metaT: Tensor, w_plane: Tensor, w_fc1T: Tensor,
+                                        b_fc1: Tensor, w_fc2: Tensor) -> FusedVolumeCotangents:
+    """Plain version of the backward: autograd of
+    `fused_metadata_volume_reference` in f32 on the same operands."""
+    leaves = [t.detach().float().requires_grad_(True)
+              for t in (src, cur, base, w_visT, w_metaT, w_plane, w_fc1T, b_fc1, w_fc2)]
+    src32, cur32, base32, wv, wm, wp, w1, b1, w2 = leaves
+    b2 = torch.zeros((1,), dtype=torch.float32, device=src.device, requires_grad=True)
+    with torch.enable_grad():
+        out = fused_metadata_volume_reference(cur32, src32, A, b, origins, invK, planes,
+                                              base32, wv, wm, wp, w1, b1, w2, b2)
+        grads = torch.autograd.grad(out, leaves + [b2], ct)
+    return FusedVolumeCotangents(*grads)
+
+
+class _FusedVolumeTrain(torch.autograd.Function):
+    """Forward: `fused_metadata_volume`; backward: `fused_metadata_volume_bwd`.
+    Gradients flow to the features and the repacked weights; the geometry
+    operands get None."""
+
+    @staticmethod
+    def forward(ctx, cur, src, A, b, origins, invK, planes, base, w_visT, w_metaT, w_plane,
+                w_fc1T, b_fc1, w_fc2, b_fc2):
+        # the kernel reads w_visT and w_fc1T in the features' dtype; the
+        # gradients go back to them in f32, as the JAX package's do
+        ops = (cur, src, A, b, origins, invK, planes, base, w_visT.to(src.dtype), w_metaT,
+               w_plane, w_fc1T.to(src.dtype), b_fc1, w_fc2)
+        ctx.save_for_backward(*ops)
+        return fused_metadata_volume(*ops, b_fc2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ops = ctx.saved_tensors
+        g = fused_metadata_volume_bwd(ct.float().contiguous(), *ops)
+        return (g.dcur.to(ops[0].dtype), g.dsrc.to(ops[1].dtype), None, None, None, None, None,
+                g.dbase, g.dw_visT, g.dw_metaT, g.dw_plane, g.dw_fc1T, g.db_fc1, g.dw_fc2,
+                g.db_fc2)
+
+
+def fused_metadata_volume_train(cur: Tensor, src: Tensor, A: Tensor, b: Tensor, origins: Tensor,
+                                invK: Tensor, planes: Tensor, base: Tensor, w_visT: Tensor,
+                                w_metaT: Tensor, w_plane: Tensor, w_fc1T: Tensor, b_fc1: Tensor,
+                                w_fc2: Tensor, b_fc2: Tensor) -> Tensor:
+    """The differentiable volume (B, D, H, W) f32: forward kernel #1,
+    backward kernel #2 (their plain versions on CPU tensors). The operands
+    are `fused_metadata_volume`'s, except that w_visT and w_fc1T may be f32
+    (they are cast to the features' dtype for the kernel); every gradient
+    but dcur and dsrc is f32."""
+    return _FusedVolumeTrain.apply(cur, src, A, b, origins, invK, planes, base, w_visT,
+                                   w_metaT, w_plane, w_fc1T, b_fc1, w_fc2, b_fc2)

@@ -1,15 +1,31 @@
-"""Model and dataset constructors shared by the entry points, counterpart of
-implicit_depth_tpu/train/loop.py::build_net / build_dataset (whose module
-imports JAX). `fit` comes with the training slice."""
+"""Training orchestration, counterpart of implicit_depth_tpu/train/loop.py:
+`build_net` and `build_dataset` (shared with the eval CLI), and `fit`, a
+single-process BD training loop.
+
+fit wires: dataset -> the port's BatchLoader -> `make_bd_train_step` ->
+log scalars every log_interval steps -> validation every val_interval steps
+(`forward_val` + `legacy_and_new_iou`) -> `torch.save` of {model,
+optimizer, step} at each validation and at the end. Not ported yet: the
+CheckpointManager's top-k and resume with the data-order skip, async
+writes, the ExperimentLogger and multi-process data parallelism.
+"""
 
 from __future__ import annotations
 
+import os
+import time
+from typing import Callable, Optional
+
 import torch
 
-from implicit_depth_tpu.config import Config
-from implicit_depth_tpu.data.mvs_dataset import BDSamplingConfig
-from implicit_depth_tpu.data.registry import get_dataset
+from implicit_depth_tpu_torch.config import Config
+from implicit_depth_tpu_torch.data.loader import BatchLoader
+from implicit_depth_tpu_torch.data.mvs_dataset import BDSamplingConfig
+from implicit_depth_tpu_torch.data.registry import get_dataset
+from implicit_depth_tpu_torch.eval import binary_metrics as bm
 from implicit_depth_tpu_torch.models.bd_net import BDNet
+from implicit_depth_tpu_torch.train import state as state_lib
+from implicit_depth_tpu_torch.weights import init_params, load_state_dict
 
 
 def build_net(cfg: Config) -> BDNet:
@@ -61,3 +77,92 @@ def build_dataset(cfg: Config, split: str, limit_to_scan_id=None, pass_frame_id:
                num_images_in_tuple=cfg.num_images_in_tuple or cfg.model_num_views,
                limit_to_scan_id=limit_to_scan_id,
                skip_frames=cfg.skip_frames, **kwargs)
+
+
+def batch_to_device(batch, device: torch.device) -> tuple[dict, dict]:
+    """A collated numpy (cur, src) batch as tensors on `device`."""
+    return tuple({k: torch.as_tensor(v).to(device) for k, v in d.items()
+                  if k != "frame_id_string"} for d in batch)
+
+
+def validate(net: BDNet, cfg: Config, val_ds, device: torch.device) -> dict:
+    """Mean of `legacy_and_new_iou` over up to cfg.val_batches batches of
+    `forward_val` (eval mode, the config's compute dtype)."""
+    loader = BatchLoader(val_ds, cfg.val_batch_size, shuffle=False,
+                         num_workers=cfg.num_workers, epochs=1)
+    cdt = net.compute_dtype
+    sums: dict = {}
+    n = 0
+    net.eval()
+    with torch.no_grad(), torch.autocast(device.type, dtype=cdt, enabled=cdt != torch.float32):
+        for bi, batch in enumerate(iter(loader)):
+            if bi >= cfg.val_batches:
+                loader.stop()
+                break
+            cur, src = batch_to_device(batch, device)
+            pred = torch.sigmoid(cfg.bd_sigmoid_multiplier * net.forward_val(cur, src)["pred_0"].float())
+            for k, v in bm.legacy_and_new_iou(cur["rendered_depth"], cur["depth"], pred).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+    net.train()
+    return {f"val/{k}": v / n for k, v in sums.items()}
+
+
+def fit(cfg: Config, device: str = "cuda", max_steps: Optional[int] = None,
+        log_cb: Optional[Callable] = None) -> dict:
+    """Trains the BD model of `cfg` on one device. Returns {"step",
+    "losses" (the last step's), "val" (the last validation), "checkpoint"
+    (the last file written)}."""
+    max_steps = max_steps or cfg.max_steps
+    dev = torch.device(device)
+    net = init_params(build_net(cfg), torch.Generator().manual_seed(cfg.random_seed))
+    if cfg.load_weights_from_checkpoint:
+        state = torch.load(cfg.load_weights_from_checkpoint, map_location="cpu", weights_only=True)
+        load_state_dict(net, state.get("model", state))
+    net.to(dev).train()
+
+    train_ds = build_dataset(cfg, "train")
+    val_ds = build_dataset(cfg, "val")
+    loader = BatchLoader(train_ds, cfg.batch_size, num_workers=cfg.num_workers,
+                         seed=cfg.random_seed)
+    opt, sched = state_lib.make_optimizer(net.parameters(), cfg.lr, cfg.wd, cfg.lr_steps)
+    step_fn = state_lib.make_bd_train_step(
+        net, opt, sched, pos_weight=cfg.binary_loss_positive_weight,
+        regularisation_weight=cfg.bd_regularisation_weight,
+        edge_regularisation=cfg.bd_edge_regularision,
+        generator=torch.Generator().manual_seed(cfg.random_seed + 2))
+    ckpt_dir = os.path.join(cfg.log_dir, cfg.name, "checkpoints")
+
+    def save(step: int) -> str:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"step_{step:08d}.pt")
+        torch.save({"model": net.state_dict(), "optimizer": opt.state_dict(), "step": step},
+                   path)
+        return path
+
+    step, losses, vm, ckpt = 0, {}, {}, None
+    t0 = time.perf_counter()
+    it = iter(loader)
+    while step < max_steps:
+        try:
+            batch = next(it)
+        except StopIteration:
+            it = iter(loader)
+            batch = next(it)
+        losses = step_fn(batch_to_device(batch, dev))
+        step += 1
+        if step % cfg.log_interval == 0:
+            scalars = {f"train/{k}": float(v) for k, v in losses.items()}
+            scalars["train/steps_per_sec"] = cfg.log_interval / max(time.perf_counter() - t0, 1e-9)
+            scalars.update({f"data/{k}": float(v) for k, v in loader.stats().items()})
+            t0 = time.perf_counter()
+            if log_cb:
+                log_cb(step, scalars)
+        if step % cfg.val_interval == 0 or step >= max_steps:
+            vm = validate(net, cfg, val_ds, dev)
+            if log_cb and vm:
+                log_cb(step, vm)
+            ckpt = save(step)
+    loader.stop()
+    return {"step": step, "losses": {k: float(v) for k, v in losses.items()}, "val": vm,
+            "checkpoint": ckpt}

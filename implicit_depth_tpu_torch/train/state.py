@@ -1,0 +1,87 @@
+"""Optimizer and the BD training step, counterpart of
+implicit_depth_tpu/train/state.py (make_optimizer, make_bd_train_step).
+
+- AdamW (decoupled weight decay, eps 1e-8, on every parameter, as optax's
+  `adamw` with a schedule) and the stepped learning rate x1 / x0.1 / x0.01
+  at lr_steps, with optax.piecewise_constant_schedule's boundaries: the
+  update with index i (0-based) runs at the rate for i, scaled by 0.1 once
+  i >= lr_steps[0] and again once i >= lr_steps[1].
+- The step: flip ~ Bernoulli(0.5) from the step's torch.Generator (or given),
+  the edge mask of gt_depth sampled at the rays (nearest), the train forward
+  with batch norm in train mode, `binary_losses`, backward, optimizer step.
+
+Mixed precision: parameters stay f32; at bf16 compute the conv and dense
+stacks run under torch.autocast(dtype=bfloat16), the counterpart of flax's
+f32 params with `dtype=bfloat16`. BDNet keeps the pose products and the
+volume operands in f32 (autocast off there), and the kernels take the
+features in bf16 as their contract says.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from implicit_depth_tpu_torch.core.sampling import grid_sample
+from implicit_depth_tpu_torch.ops import image as image_ops
+from implicit_depth_tpu_torch.train import losses as loss_lib
+
+Tensor = torch.Tensor
+
+
+def stepped_lr(lr_steps) -> Callable[[int], float]:
+    """The factor on the base rate for the update with index i."""
+    s0, s1 = int(lr_steps[0]), int(lr_steps[1])
+    return lambda i: (0.1 if i >= s0 else 1.0) * (0.1 if i >= s1 else 1.0)
+
+
+def make_optimizer(params, lr: float = 1e-4, wd: float = 1e-4, lr_steps=(70000, 80000)):
+    """(AdamW, LambdaLR) over `params`; call the scheduler's step() after
+    every optimizer step."""
+    opt = torch.optim.AdamW(params, lr=lr, weight_decay=wd, eps=1e-8, betas=(0.9, 0.999))
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, stepped_lr(lr_steps))
+
+
+def edge_mask_at_rays(gt_depth: Tensor, rays: Tensor) -> Tensor:
+    """get_edge_mask(gt_depth) sampled (nearest) at the rays -> (b, N, 1)."""
+    hg, wg = gt_depth.shape[1], gt_depth.shape[2]
+    edge = image_ops.get_edge_mask(gt_depth)
+    grid = torch.stack([(rays[..., 0] / wg - 0.5) * 2, (rays[..., 1] / hg - 0.5) * 2], -1)
+    return grid_sample(edge, grid[:, :, None], mode="nearest")[:, :, 0, 0][..., None]
+
+
+def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.0,
+                       regularisation_weight: float = 0.5, edge_regularisation: bool = True,
+                       train_flip: bool = True,
+                       generator: Optional[torch.Generator] = None) -> Callable:
+    """Returns step(batch, flip=None) -> losses (detached tensors). batch =
+    (cur_data, src_data) tensors on the net's device; flip None draws from
+    `generator` (Bernoulli(0.5)) when train_flip is set, else no flip."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def step(batch, flip: Optional[bool] = None) -> dict:
+        cur_data, src_data = batch
+        if flip is None:
+            flip = bool(torch.rand((), generator=gen) < 0.5) if train_flip else False
+        edge = None
+        if edge_regularisation:
+            with torch.no_grad():
+                edge = edge_mask_at_rays(cur_data["gt_depth"].float(), cur_data["sampled_rays"])
+        net.train()
+        cdt = net.compute_dtype
+        dev = cur_data["image"].device.type
+        with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
+            out = net(cur_data, src_data, flip=flip)
+        preds = {k: v for k, v in out.items() if k.startswith("pred_")}
+        losses = loss_lib.binary_losses(
+            out["query_depth"], out["target_depth"][..., None], preds, pos_weight=pos_weight,
+            regularisation_weight=regularisation_weight, edge_mask=edge)
+        optimizer.zero_grad(set_to_none=True)
+        losses["loss"].backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step

@@ -1,10 +1,15 @@
-"""The fused metadata-volume CUDA kernel against its plain PyTorch version,
-on the card. The kernel is CUDA C++ for sm_90a and has no CPU mode, so
-these tests skip without an NVIDIA GPU; chip_smoke.py runs the same
-comparison at the flagship shape.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+fused metadata volume forward (#1) and backward (#2), the ray-head forward
+(#3) and backward (#4). The kernels are CUDA C++ for sm_90a and have no CPU
+mode, so these tests skip without an NVIDIA GPU; chip_smoke.py runs the
+same comparisons at the flagship shapes.
 
-Tolerance: atol 2e-3, rtol 1e-3 (f32 sums in another order; the JAX
-package holds its TPU kernel to the same bound).
+Tolerances: #1 atol 2e-3, rtol 1e-3 (f32 sums in another order; the JAX
+package holds its TPU kernel to the same bound). #2 at a small ragged shape
+atol 5e-3, rtol 5e-3 elementwise (tests/test_fused_volume.py:170-176;
+measured ~1e-6: the shape is small enough that no LeakyReLU pre-activation
+sits within rounding of 0). #3 atol 1e-5, rtol 1e-5 in f32; #4 1e-4 of
+each cotangent's largest value (f32 sums in another order).
 """
 
 import numpy as np
@@ -48,7 +53,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
 def test_forward_val_gpu_matches_cpu(cuda):
     """Tiny BDNet: the GPU forward (kernel) against the CPU forward (plain
     version), f32 with TF32 off."""
-    from implicit_depth_tpu.utils.fixtures import synthetic_bd_batch
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
     from implicit_depth_tpu_torch.models.bd_net import BDNet
     from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
     from implicit_depth_tpu_torch.weights import init_params
@@ -66,3 +71,43 @@ def test_forward_val_gpu_matches_cpu(cuda):
     assert fused_metadata_volume.launches == before + 1
     np.testing.assert_allclose(got["pred_0"].cpu().numpy(), ref["pred_0"].numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+def test_volume_backward_matches_plain_version(cuda):
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+
+    ops = chip_smoke.volume_operands(B=1, K=2, H=8, W=12, D=5, dtype=torch.float32, seed=3)[:14]
+    ct = torch.randn((1, 5, 8, 12), generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = fvm.fused_metadata_volume_bwd.launches
+    got = fvm.fused_metadata_volume_bwd(ct, *ops)
+    ref = fvm.fused_metadata_volume_bwd_reference(ct, *ops)
+    torch.cuda.synchronize()
+    assert fvm.fused_metadata_volume_bwd.launches == before + 1
+    for name in fvm.FusedVolumeCotangents._fields:
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(), getattr(ref, name).cpu().numpy(),
+                                   atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("prior", [False, True], ids=["noprior", "prior"])
+def test_ray_head_kernels_match_plain_versions(cuda, prior):
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    ops, ct = chip_smoke.ray_inputs(b=2, n=100, s=13, prior=prior, dtype=torch.float32, seed=5)
+    before = rh.ray_head_fwd.launches, rh.ray_head_bwd.launches
+    with torch.no_grad():
+        out = rh.ray_head_fwd(*ops)
+        ref = rh.ray_head_reference(*ops)
+    gk = rh.ray_head_bwd(ct, *ops[:-1])
+    gr = rh.ray_head_bwd_reference(ct, *ops[:-1])
+    torch.cuda.synchronize()
+    assert (rh.ray_head_fwd.launches, rh.ray_head_bwd.launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5, rtol=1e-5)
+    for name in gk._fields:
+        a, r = getattr(gk, name), getattr(gr, name)
+        if r is None:
+            assert a is None
+            continue
+        err = (a.reshape(r.shape) - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item() + 1e-6, name
