@@ -6,7 +6,7 @@
 Phases, one line each or a few; any failure raises and the script exits
 non-zero:
 1. device:      the card's name and power limit (nvidia-smi).
-2. build:       nvcc builds the three kernel libraries from
+2. build:       nvcc builds the four kernel libraries from
                 implicit_depth_tpu_torch/csrc/, one process per source, all at
                 once; the ptxas register and spill report of each.
 3. kernel:      the fused-volume forward (kernel #1) against its plain
@@ -37,7 +37,28 @@ non-zero:
                 b=1, N=256, S=64, flip on, on the GPU (kernels) and on the
                 CPU (plain versions) from the same weights and batch: loss
                 and parameter gradients against stated bounds.
-Then one JSON line with the four kernels' results and, last, the device line.
+9. kernel-warp: the plane-sweep warp (kernel #5) and its transpose (#6)
+                against their plain versions at the eval shape (K'=7, D=64,
+                96x128, C=16; f32 and bf16), the train shape (K'=112, bf16)
+                and a ragged shape (K'=3, D=13, 50x70, f32) whose poses put
+                samples behind the camera and out of frame; max errors
+                against stated bounds, CUDA-event medians of the kernels,
+                the plain versions and the library calls (F.grid_sample and
+                its backward), and the bound.
+10. reg-main:   the cli/test_reg.py path (eval/depth_eval.py::evaluate_depth)
+                with the flagship regression DepthNet (regression_model.yaml:
+                EfficientNetV2-S, K=7, D=64, bf16, seeded random weights) over
+                5 synthetic 512x384 tuples at b=1: depth metrics finite,
+                kernel #5 once per forward and #1-#4 never; then one forward
+                of the dot-product DepthNet (dot_product_model.yaml).
+11. reg-train:  `make_regression_train_step` on the flagship DepthNet at b=16
+                (the config's batch), 512x384: 6 steps on a device-resident
+                batch; kernels #5, #6 launch once each per step and #1-#4
+                never; losses finite, parameters and BN statistics moved;
+                median step time, peak device memory, one profiled step.
+12. reg-train-model: one f32 regression step of a flagship-width DepthNet at
+                128x192, b=1, flip on, GPU against CPU, against stated bounds.
+Then one JSON line with the six kernels' results and, last, the device line.
 
 The script imports torch, numpy and the port; nothing of JAX and nothing of
 the JAX package.
@@ -79,6 +100,7 @@ TIMED_RUNS = 20
 # FLOP / the bf16 peak (the kernels' work is matrix products)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # CUDA cores, outside the tensor cores (the warp's arithmetic)
 C_, F_ = 16, 128
 
 
@@ -185,10 +207,10 @@ def phase_kernel() -> dict:
     return result
 
 
-def least_ms(nbytes: float, flops: float) -> tuple:
+def least_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) -> tuple:
     """(least ms, "bytes" or "operations") for the given work on this card."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -352,20 +374,20 @@ def phase_main() -> dict:
     from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
     from implicit_depth_tpu_torch.eval import binary_metrics as bm
     from implicit_depth_tpu_torch.eval.occlusion_eval import evaluate_scenes
-    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
 
     ds = SyntheticDataset(num_frames=12, num_views=8, image_height=384, image_width=512,
                           split="test", get_bd_info=True)
     net = flagship_net(torch.bfloat16).cuda().cast_to_compute_dtype()
     thresholder = bm.Thresholder(np.linspace(1.5, 5.0, 8, dtype=np.float32),
                                  np.full(8, 0.5, np.float32))
-    fused_metadata_volume.launches = 0
+    _zero_launch_counts()
     res = evaluate_scenes(net, {"scene0": ds}, batch_size=1, thresholder=thresholder)
-    launches = fused_metadata_volume.launches
+    counts = _launch_counts()
+    launches = counts[0]
     metrics = res["all_scene"].final_metrics
-    if res["forwards"] != len(ds) or launches != res["forwards"]:
+    if res["forwards"] != len(ds) or counts != (res["forwards"], 0, 0, 0, 0, 0):
         raise AssertionError(f"{res['forwards']} forwards over {len(ds)} tuples, "
-                             f"{launches} kernel launches")
+                             f"kernel launches #1-#6 {counts}")
     if res["nonfinite_preds"]:
         raise AssertionError(f"{res['nonfinite_preds']} non-finite predictions")
     for prefix in ("iou_d_", "surface_iou_d_", "boundary_iou_d_"):
@@ -406,20 +428,22 @@ def phase_model() -> None:
           f"lowest_cost on the same plane for {same_lowest:.4f} of pixels", flush=True)
 
 
-def _launch_counts() -> tuple:
+def _wrappers() -> tuple:
+    """The six kernel wrappers, #1 to #6."""
     from implicit_depth_tpu_torch.ops import fused_volume as fvm
     from implicit_depth_tpu_torch.ops import ray_head as rh
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
 
-    return (fvm.fused_metadata_volume.launches, fvm.fused_metadata_volume_bwd.launches,
-            rh.ray_head_fwd.launches, rh.ray_head_bwd.launches)
+    return (fvm.fused_metadata_volume, fvm.fused_metadata_volume_bwd, rh.ray_head_fwd,
+            rh.ray_head_bwd, wk.warp_planes, wk.warp_planes_bwd)
+
+
+def _launch_counts() -> tuple:
+    return tuple(fn.launches for fn in _wrappers())
 
 
 def _zero_launch_counts() -> None:
-    from implicit_depth_tpu_torch.ops import fused_volume as fvm
-    from implicit_depth_tpu_torch.ops import ray_head as rh
-
-    for fn in (fvm.fused_metadata_volume, fvm.fused_metadata_volume_bwd, rh.ray_head_fwd,
-               rh.ray_head_bwd):
+    for fn in _wrappers():
         fn.launches = 0
 
 
@@ -499,9 +523,9 @@ def phase_train() -> dict:
         print("train: b=12 does not fit in device memory; running b=6", flush=True)
         res = _train_run(6)
     n = TRAIN_STEPS
-    if res["launches"] != (n, n, 4 * n, 4 * n):
-        raise AssertionError(f"train: kernel launches (#1, #2, #3, #4) {res['launches']} over {n} "
-                             f"steps, expected {(n, n, 4 * n, 4 * n)}")
+    if res["launches"] != (n, n, 4 * n, 4 * n, 0, 0):
+        raise AssertionError(f"train: kernel launches #1-#6 {res['launches']} over {n} "
+                             f"steps, expected {(n, n, 4 * n, 4 * n, 0, 0)}")
     if not all(np.isfinite(v) for ls in res["losses"] for v in ls.values()):
         raise AssertionError(f"train: non-finite losses {res['losses']}")
     if not all(res["moved"].values()):
@@ -511,7 +535,7 @@ def phase_train() -> dict:
           f"f32 params, seeded random weights), b={res['b']} synthetic 512x384 tuples, N=4096, "
           f"S=64 (data {res['data_s']:.1f} s): train_step_ms {step_ms:.1f} (median of steps "
           f"2-{n}; all {', '.join(f'{t:.1f}' for t in res['times'])}), peak device memory "
-          f"{res['peak_gb']:.2f} GiB, launches #1/#2/#3/#4 {res['launches']}, loss "
+          f"{res['peak_gb']:.2f} GiB, launches #1-#6 {res['launches']}, loss "
           f"{res['losses'][0]['loss']:.4f} -> {res['losses'][-1]['loss']:.4f}, moved "
           f"{sorted(res['moved'])}", flush=True)
     prof = res["profile"]
@@ -580,6 +604,335 @@ def phase_train_model() -> None:
             and leaf[0] <= MODEL_GRAD_LEAF and edge_diff <= 1e-2):
         raise AssertionError("train-model: the GPU train step disagrees with the CPU one")
 
+# ---------------------------------------------------------------- the warp
+
+WARP_EVAL = dict(K=7, H=96, W=128, D=64)     # one frame of the eval path: b=1 x 7 views
+WARP_TRAIN = dict(K=112, H=96, W=128, D=64)  # a train step at b=16: 16 x 7 views
+WARP_RAGGED = dict(K=3, H=50, W=70, D=13)
+# #5 and #6 vs plain, (atol, rtol): the JAX package's bounds for its warp
+# kernels against the XLA sampler (tests/test_warp_kernel.py). The sample
+# coordinates are the same bits on both sides; the bilinear blend rounds in
+# another order, and #6's float atomics add a source pixel's contributions in
+# an order that changes from run to run. In bf16 one bf16 ulp (at most 2^-7
+# of the value) on top: both round one f32 value to bf16 and may straddle a
+# rounding boundary.
+BF16_ULP = 2.0 ** -7
+WARP_TOL = {torch.float32: ((2e-4, 1e-4), (3e-4, 1e-3)),
+            torch.bfloat16: ((2e-4, 1e-4 + BF16_ULP), (3e-4, 1e-3 + BF16_ULP))}
+WARP_CHUNK = 16  # views per call of a plain version at the train shape (device memory)
+WARP_POINT_FLOPS = 16 + 4 * 16 * 2  # coordinates, then 4 taps x 16 channels (multiply-add)
+
+
+def _rot(axis: int, angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    i, j = [a for a in range(3) if a != axis]
+    R = np.eye(3)
+    R[i, i], R[i, j], R[j, i], R[j, j] = c, -s, s, c
+    return R
+
+
+def warp_operands(K: int, H: int, W: int, D: int, dtype, seed: int = 0, device="cuda",
+                  extreme: bool = False) -> tuple:
+    """Seeded operands of the warp: source features (K', H, W, 16), the
+    homography components A (K', 3, 3), b (K', 3) of views at small random
+    rotations and translations around the current one (intrinsics at
+    matching resolution), log-spaced planes 0.25-5 m. `extreme` turns every
+    other view by ~70 degrees and pushes it back, so that some samples fall
+    behind the camera and many out of frame."""
+    from implicit_depth_tpu_torch.core import geometry
+
+    rng = np.random.RandomState(seed)
+    Kmat = np.array([[0.9 * W, 0, W / 2], [0, 0.9 * H, H / 2], [0, 0, 1.0]])
+    A = np.zeros((K, 3, 3), np.float32)
+    b = np.zeros((K, 3), np.float32)
+    for k in range(K):
+        R = _rot(2, rng.uniform(-0.1, 0.1)) @ _rot(1, rng.uniform(-0.15, 0.15)) \
+            @ _rot(0, rng.uniform(-0.1, 0.1))
+        t = rng.uniform(-0.3, 0.3, 3)
+        if extreme and k % 2:
+            R = _rot(1, 1.2) @ R
+            t = t + np.array([0.0, 0.0, -1.0])
+        A[k] = Kmat @ R @ np.linalg.inv(Kmat)
+        b[k] = Kmat @ t
+    gen = torch.Generator().manual_seed(seed)
+    src = torch.randn((K, H, W, 16), generator=gen).to(device, dtype)
+    planes = geometry.log_depth_planes(0.25, 5.0, D, device=device)
+    return src, torch.tensor(A, device=device), torch.tensor(b, device=device), planes
+
+
+def _frame_shares(A, b, planes, H: int, W: int) -> tuple:
+    """Shares of the sample points behind the camera (z at its clamp) and
+    wholly out of frame (no tap inside the image)."""
+    from implicit_depth_tpu_torch.core import geometry
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    x, y = wk.sample_coords(A, b, planes, H, W)
+    r2 = planes[None, :, None, None] * torch.einsum(
+        "kj,hwj->khw", A[:, 2], geometry.pixel_grid(H, W, device=A.device))[:, None]
+    behind = (r2 + b[:, 2, None, None, None] <= 1e-5).float().mean().item()
+    outside = ((x <= -1) | (x >= W) | (y <= -1) | (y >= H)).float().mean().item()
+    return behind, outside
+
+
+def _in_chunks(fn, K: int, chunk: int):
+    """fn(slice) for consecutive slices of the view axis, concatenated."""
+    return torch.cat([fn(slice(i, min(i + chunk, K))) for i in range(0, K, chunk)])
+
+
+def _warp_check(label: str, got, ref, atol: float, rtol: float) -> float:
+    err = (got.float() - ref.float()).abs()
+    bound = atol + rtol * ref.float().abs()
+    if got.shape != ref.shape or got.dtype != ref.dtype or \
+            not torch.isfinite(got.float()).all() or (err > bound).any():
+        raise AssertionError(f"kernel-warp {label} disagrees with its plain version: "
+                             f"max_abs_err {err.max().item():.3e}, worst excess "
+                             f"{(err - bound).max().item():.3e}")
+    return err.max().item()
+
+
+def phase_kernel_warp() -> dict:
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    result = {}
+    for label, shape, dtype, extreme in (("eval f32", WARP_EVAL, torch.float32, False),
+                                         ("eval bf16", WARP_EVAL, torch.bfloat16, False),
+                                         ("train bf16", WARP_TRAIN, torch.bfloat16, False),
+                                         ("ragged f32", WARP_RAGGED, torch.float32, True)):
+        K, H, W, D = (shape[x] for x in "KHWD")
+        src, A, b, planes = warp_operands(**shape, dtype=dtype, seed=1, extreme=extreme)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        ct = torch.randn((K, D, H, W, 16), generator=gen, device="cuda").to(dtype)
+
+        def ref_fwd(sl):
+            return wk.warp_planes_reference(src[sl], A[sl], b[sl], planes)
+
+        def ref_bwd(sl):
+            return wk.warp_planes_bwd_reference(ct[sl], A[sl], b[sl], planes)
+
+        (fa, fr), (ba, br) = WARP_TOL[dtype]
+        with torch.no_grad():
+            out = wk.warp_planes(src, A, b, planes)
+            f_err = _warp_check(f"{label} forward", out, _in_chunks(ref_fwd, K, WARP_CHUNK), fa, fr)
+        g = wk.warp_planes_bwd(ct, A, b, planes)
+        b_err = _warp_check(f"{label} transpose", g, _in_chunks(ref_bwd, K, WARP_CHUNK), ba, br)
+        torch.cuda.synchronize()
+        behind, outside = _frame_shares(A, b, planes, H, W)
+        line = (f"kernel-warp {label} K'={K} D={D} {H}x{W} ({behind:.1%} of the samples behind the "
+                f"camera, {outside:.1%} out of frame): forward max_abs_err {f_err:.3e} "
+                f"(bound {fa} + {fr:.4g}*|ref|), transpose max_abs_err {b_err:.3e} (bound {ba} + "
+                f"{br:.4g}*|ref|)")
+        if dtype == torch.bfloat16:
+            line += _warp_timings(label, result, src, A, b, planes, ct, out, g, ref_fwd, ref_bwd)
+            result[label]["fwd"]["max_abs_err"] = f_err
+            result[label]["bwd"]["max_abs_err"] = b_err
+        print(line, flush=True)
+        del src, ct, out, g
+        torch.cuda.empty_cache()
+    return result
+
+
+def _warp_timings(label, result, src, A, b, planes, ct, out, g, ref_fwd, ref_bwd) -> str:
+    """Medians of the kernels, the plain versions (in view chunks) and the
+    library calls, and the bounds; stored in result[label]."""
+    import torch.nn.functional as F
+
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    K, H, W, C = src.shape
+    D = planes.shape[0]
+    with torch.no_grad():
+        f_ms = cuda_ms(lambda: wk.warp_planes(src, A, b, planes))
+        f_plain = cuda_ms(lambda: _in_chunks(ref_fwd, K, WARP_CHUNK), runs=3)
+    b_ms = cuda_ms(lambda: wk.warp_planes_bwd(ct, A, b, planes))
+    b_plain = cuda_ms(lambda: _in_chunks(ref_bwd, K, WARP_CHUNK), runs=3)
+    # the library yardstick: F.grid_sample on NCHW with a precomputed
+    # (K', D*H, W, 2) grid in the features' dtype, and its backward; the
+    # layout permutes are outside the timed calls
+    x, y = wk.sample_coords(A, b, planes, H, W)
+    grid = torch.stack([(2 * x + 1) / W - 1, (2 * y + 1) / H - 1], -1)
+    grid = grid.reshape(K, D * H, W, 2).to(src.dtype)
+    inp = src.permute(0, 3, 1, 2).contiguous()
+    gout = ct.permute(0, 4, 1, 2, 3).reshape(K, C, D * H, W).contiguous()
+    del x, y
+    with torch.no_grad():
+        f_lib = cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                              align_corners=False))
+        b_lib = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, inp, grid, 0, 0, False, [True, False]))
+    del grid, inp, gout
+    points = K * D * H * W
+    fb = least_ms(nbytes(src, A, b, planes, out), points * WARP_POINT_FLOPS, F32_FLOP_PER_S)
+    bb = least_ms(nbytes(ct, A, b, planes, g), points * WARP_POINT_FLOPS, F32_FLOP_PER_S)
+    result[label] = {
+        "fwd": {"ms": f_ms, "plain_ms": f_plain, "library_ms": f_lib, "bound_ms": fb[0],
+                "bound_by": fb[1]},
+        "bwd": {"ms": b_ms, "plain_ms": b_plain, "library_ms": b_lib, "bound_ms": bb[0],
+                "bound_by": bb[1]}}
+    return (f"; forward kernel {f_ms:.3f} ms, plain {f_plain:.3f} ms, grid_sample {f_lib:.3f} ms, "
+            f"bound {fb[0]:.4f} ms ({fb[1]}); transpose kernel {b_ms:.3f} ms, plain "
+            f"{b_plain:.3f} ms, grid_sampler_2d_backward {b_lib:.3f} ms, bound {bb[0]:.4f} ms "
+            f"({bb[1]}) (medians; library calls without the layout permutes)")
+
+
+# ------------------------------------------------------ the regression slice
+
+def reg_net(dtype, feature_volume_type: str = "mlp_feature_volume", seed: int = 0):
+    """The flagship regression DepthNet (configs/models/regression_model.yaml:
+    EfficientNetV2-S, ResNet matching encoder, 7 source views, 64 planes,
+    U-Net++ with log-depth heads), seeded random weights."""
+    from implicit_depth_tpu_torch.models.depth_net import DepthNet
+    from implicit_depth_tpu_torch.weights import init_params
+
+    net = DepthNet(feature_volume_type=feature_volume_type, num_src_views=7, num_depth_bins=64,
+                   compute_dtype=dtype)
+    return init_params(net, torch.Generator().manual_seed(seed))
+
+
+def phase_reg_main() -> dict:
+    from implicit_depth_tpu_torch.data.mvs_dataset import collate
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.eval.depth_eval import evaluate_depth
+
+    ds = SyntheticDataset(num_frames=12, num_views=8, image_height=384, image_width=512,
+                          split="test", get_bd_info=False)
+    net = reg_net(torch.bfloat16).cuda().eval().cast_to_compute_dtype()
+    _zero_launch_counts()
+    res = evaluate_depth(net, {"scene0": ds}, batch_size=1)
+    counts = _launch_counts()
+    n = res["forwards"]
+    if n != len(ds) or counts != (0, 0, 0, 0, n, 0):
+        raise AssertionError(f"reg-main: {n} forwards over {len(ds)} tuples, kernel launches "
+                             f"#1-#6 {counts}, expected {(0, 0, 0, 0, n, 0)}")
+    metrics = res["all_scene"].final_metrics
+    if res["nonfinite_preds"] or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"reg-main: {res['nonfinite_preds']} non-finite predictions, "
+                             f"metrics {metrics}")
+    print(f"reg-main: {n} forwards of DepthNet (EfficientNetV2-S, K=7, D=64, bf16, seeded random "
+          f"weights) through evaluate_depth on 512x384 synthetic tuples, b=1: reg_model_time_ms "
+          f"{res['model_time_ms']:.3f}, launches #1-#6 {counts}, abs_rel "
+          f"{metrics['abs_rel']:.4f}, a1 {metrics['a1']:.4f}", flush=True)
+    del net
+
+    dot = reg_net(torch.bfloat16, "simple_cost_volume").cuda().eval().cast_to_compute_dtype()
+    cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
+                for d in collate([ds[0]]))
+    _zero_launch_counts()
+    with torch.inference_mode():
+        out = dot(cur, src)
+    counts = _launch_counts()
+    if counts != (0, 0, 0, 0, 1, 0) or not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f"reg-main dot product: launches #1-#6 {counts}, or non-finite "
+                             "outputs")
+    print(f"reg-main: one forward of the dot-product DepthNet (dot_product_model.yaml, bf16): "
+          f"launches #1-#6 {counts}, depth_pred_0 {tuple(out['depth_pred_0'].shape)} finite",
+          flush=True)
+    return {"launches": res["forwards"], "reg_model_time_ms": res["model_time_ms"]}
+
+
+REG_BATCH = 16  # regression_model.yaml's batch_size
+
+
+def phase_reg_train() -> dict:
+    from implicit_depth_tpu_torch.data.mvs_dataset import collate
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.train import state
+
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(num_frames=REG_BATCH + 7, num_views=8, image_height=384,
+                          image_width=512, split="train", get_bd_info=False)
+    cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
+                for d in collate([ds[i] for i in range(REG_BATCH)]))
+    data_s = time.perf_counter() - t0
+    net = reg_net(torch.bfloat16).cuda()
+    opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
+    step = state.make_regression_train_step(net, opt, sched,
+                                            generator=torch.Generator().manual_seed(0))
+    watched = {"encoder.conv_stem.weight": net.encoder.conv_stem.weight,
+               "matching.conv1.weight": net.matching.conv1.weight,
+               "volume_mlp.fc0_kernel": net.volume_mlp.fc0_kernel,
+               "decoder.output_head_0.weight": net.decoder.output_head_0.weight,
+               "matching.bn1.running_var": net.matching.bn1.running_var,
+               "encoder.s5_b14.bn3.running_mean": net.encoder.s5_b14.bn3.running_mean}
+    before = {k: v.detach().clone() for k, v in watched.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = step((cur, src))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append({k: float(v) for k, v in out.items()})
+    counts = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n = TRAIN_STEPS
+    if counts != (0, 0, 0, 0, n, n):
+        raise AssertionError(f"reg-train: kernel launches #1-#6 {counts} over {n} steps, "
+                             f"expected {(0, 0, 0, 0, n, n)}")
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()):
+        raise AssertionError(f"reg-train: non-finite losses {losses}")
+    moved = {k: not torch.equal(before[k], v.detach()) for k, v in watched.items()}
+    if not all(moved.values()):
+        raise AssertionError(f"reg-train: parameters or BN statistics did not move: {moved}")
+    step_ms = float(np.median(times[1:]))
+    print(f"reg-train: {n} steps of make_regression_train_step (DepthNet EfficientNetV2-S, K=7, "
+          f"D=64, bf16 autocast, f32 params, seeded random weights), b={REG_BATCH} synthetic "
+          f"512x384 tuples (data {data_s:.1f} s): reg_train_step_ms {step_ms:.1f} (median of "
+          f"steps 2-{n}; all {', '.join(f'{t:.1f}' for t in times)}), peak device memory "
+          f"{peak_gb:.2f} GiB, launches #1-#6 {counts}, loss {losses[0]['loss']:.4f} -> "
+          f"{losses[-1]['loss']:.4f}, moved {sorted(moved)}", flush=True)
+    prof = _profile_step(step, (cur, src))
+    print(f"reg-train profile (one more step under torch.profiler): wall {prof['wall_ms']:.1f} ms, "
+          f"device kernels {prof['device_ms']:.1f} ms (device idle "
+          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time:",
+          flush=True)
+    for ms, count, name in prof["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+    return {"launches": counts, "reg_train_step_ms": step_ms, "peak_gb": peak_gb}
+
+
+def phase_reg_train_model() -> None:
+    """One f32 regression step, GPU against CPU, held to the BD step's
+    bounds (MODEL_*): the same causes of spread (f32 sums in other orders,
+    LeakyReLU slope ties in the volume MLP, ~60 layers of backward) plus the
+    transpose's atomics, whose order varies from run to run."""
+    import copy
+
+    from implicit_depth_tpu_torch.train import state
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+
+    net = reg_net(torch.float32)
+    cur, src = synthetic_bd_batch(batch=1, num_src=7, height=128, width=192, num_rays=4,
+                                  samples_per_ray=2, seed=2)
+    cur = {k: v for k, v in cur.items() if k not in ("gt_depth", "sampled_rays", "sampled_depths")}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        n = copy.deepcopy(net).to(dev)
+        opt, sched = state.make_optimizer(n.parameters(), lr=1e-4, wd=1e-4)
+        step = state.make_regression_train_step(n, opt, sched)
+        batch = ({k: torch.tensor(v, device=dev) for k, v in cur.items()},
+                 {k: torch.tensor(v, device=dev) for k, v in src.items()})
+        losses = step(batch, flip=True)
+        runs[dev] = (float(losses["loss"]),
+                     {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
+    den = sum((g ** 2).sum().item() for g in g_cpu.values())
+    grad_l2 = (num / den) ** 0.5
+    leaf = max(((g_gpu[k] - g).abs().max().item() / g.abs().max().item(), k)
+               for k, g in g_cpu.items() if g.abs().max().item() >= 1e-6 * gmax)
+    print(f"reg-train-model: one f32 regression step, flagship-width DepthNet at 128x192, b=1, "
+          f"flip on, GPU (kernels) vs CPU (plain versions): loss {l_gpu:.6f} vs {l_cpu:.6f} "
+          f"(relative {loss_rel:.2e}, bound {MODEL_LOSS_REL}); gradients relative L2 "
+          f"{grad_l2:.2e} (bound {MODEL_GRAD_L2}), worst parameter {leaf[1]} {leaf[0]:.2e} "
+          f"(bound {MODEL_GRAD_LEAF})", flush=True)
+    if not (loss_rel <= MODEL_LOSS_REL and grad_l2 <= MODEL_GRAD_L2 and leaf[0] <= MODEL_GRAD_LEAF):
+        raise AssertionError("reg-train-model: the GPU regression step disagrees with the CPU one")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -599,6 +952,10 @@ def main() -> int:
     phase_model()
     train_res = phase_train()
     phase_train_model()
+    kern_warp = phase_kernel_warp()
+    phase_reg_main()
+    reg_res = phase_reg_train()
+    phase_reg_train_model()
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -607,12 +964,16 @@ def main() -> int:
             ("ray_head_fwd", "ray_head.cu", "ray_head.py:142", kern_ray["fwd"],
              train_res["launches"][2]),
             ("ray_head_bwd", "ray_head.cu", "ray_head.py:161", kern_ray["bwd"],
-             train_res["launches"][3]))
+             train_res["launches"][3]),
+            ("warp_planes", "warp_planes.cu", "warp_kernel.py:44", kern_warp["train bf16"]["fwd"],
+             reg_res["launches"][4]),
+            ("warp_planes_bwd", "warp_planes.cu", "warp_kernel.py:199",
+             kern_warp["train bf16"]["bwd"], reg_res["launches"][5]))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": csrc + source, "replaces": tpu + replaces,
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None} for name, source, replaces, r, launches in rows]}))
+        "library_ms": r.get("library_ms")} for name, source, replaces, r, launches in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

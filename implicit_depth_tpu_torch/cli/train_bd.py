@@ -14,26 +14,11 @@ are printed one JSON object per line.
 
 from __future__ import annotations
 
-import json
-
-import torch
-
-from implicit_depth_tpu_torch.config import parse_config
-from implicit_depth_tpu_torch.train.loop import fit
+from implicit_depth_tpu_torch.cli.train import run
 
 
 def main(argv=None) -> dict:
-    cfg, device = parse_config(argv)
-    # f32 stays f32 (the JAX package's precision): no TF32 in convs or matmuls
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    def log(step: int, scalars: dict) -> None:
-        print(json.dumps({"step": step, **scalars}), flush=True)
-
-    result = fit(cfg, device=device, log_cb=log)
-    print(f"trained {result['step']} steps; checkpoint {result['checkpoint']}")
-    return result
+    return run(argv, "bd")
 
 
 if __name__ == "__main__":

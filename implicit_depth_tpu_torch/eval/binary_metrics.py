@@ -101,6 +101,13 @@ def plane_scores(query_bhwd: Tensor, gt_bhw1: Tensor, pred_bhwd: Tensor, thresho
     return {"iou": iou, "iou_pos": iou_pos, "iou_neg": iou_neg}
 
 
+def regression_plane_scores(query_bhwd: Tensor, gt_bhw1: Tensor, pred_depth_bhw1: Tensor) -> dict:
+    """Scores a regressed depth map as a binary classifier: the prediction
+    at a query depth is (query < predicted depth), scored at threshold 0.5."""
+    pred = (query_bhwd < pred_depth_bhw1).float()
+    return plane_scores(query_bhwd, gt_bhw1, pred, threshold=0.5)
+
+
 def legacy_and_new_iou(query_bhwd: Tensor, gt_bhw1: Tensor, sigmoid_pred_bhwd: Tensor,
                        threshold: float = 0.5) -> dict:
     """Training-time validation IoUs: the legacy single IoU over every

@@ -1,5 +1,8 @@
-"""Results averaging with reference-compatible JSON output. Counterpart of
-implicit_depth_tpu/eval/metrics.py::ResultsAverager (host-side numpy)."""
+"""Depth metrics and results averaging with reference-compatible JSON
+output. Counterpart of implicit_depth_tpu/eval/metrics.py:
+`compute_depth_metrics_batched` runs on the device with NaN-masked means
+(torch.nanmean, NaN of an empty row like the reference); ResultsAverager is
+host-side numpy."""
 
 from __future__ import annotations
 
@@ -7,6 +10,39 @@ import json
 from typing import Optional
 
 import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+def compute_depth_metrics_batched(gt_bN: Tensor, pred_bN: Tensor, valid_bN: Tensor,
+                                  mult_a: bool = False) -> dict:
+    """Per-element depth metrics over the valid entries of each row:
+    {abs_diff, abs_rel, sq_rel, rmse, rmse_log, a5, a10, a25, a0..a3}, each
+    (b,)."""
+    nan = torch.tensor(float("nan"), dtype=gt_bN.dtype, device=gt_bN.device)
+    gt = torch.where(valid_bN, gt_bN, nan)
+    pred = torch.where(valid_bN, pred_bN, nan)
+    thresh = torch.maximum(gt / pred, pred / gt)
+
+    def a_metric(limit):
+        m = torch.nanmean(torch.where(valid_bN, (thresh < limit).to(gt.dtype), nan), dim=1)
+        return m * 100.0 if mult_a else m
+
+    return {
+        "abs_diff": torch.nanmean(torch.abs(gt - pred), dim=1),
+        "abs_rel": torch.nanmean(torch.abs(gt - pred) / gt, dim=1),
+        "sq_rel": torch.nanmean((gt - pred) ** 2 / gt, dim=1),
+        "rmse": torch.sqrt(torch.nanmean((gt - pred) ** 2, dim=1)),
+        "rmse_log": torch.sqrt(torch.nanmean((torch.log(gt) - torch.log(pred)) ** 2, dim=1)),
+        "a5": a_metric(1.05),
+        "a10": a_metric(1.10),
+        "a25": a_metric(1.25),
+        "a0": a_metric(1.10),
+        "a1": a_metric(1.25),
+        "a2": a_metric(1.25 ** 2),
+        "a3": a_metric(1.25 ** 3),
+    }
 
 
 class ResultsAverager:

@@ -1,7 +1,7 @@
 """Cost-volume encoder, U-Net++ decoder and binary query head (torch).
 
 Counterpart of implicit_depth_tpu/models/decoders.py (CVEncoder, DecoderPP
-with no output heads, BinaryMLPNetwork.__call__). Conv stacks are NCHW;
+with or without its 1x1 output heads, BinaryMLPNetwork). Conv stacks are NCHW;
 the query head works on the last axis. DecoderPP computes only the final
 column's output per scale, the one the reference keeps.
 """
@@ -50,10 +50,13 @@ class CVEncoder(nn.Module):
 class DecoderPP(nn.Module):
     """Dense-skip grid decoder. Input: 5 encoder features at strides 2..32
     with channels `enc_channels`; output {scale: (b, NUM_CH_DEC[s], h_s, w_s)}
-    for scales 0..3."""
+    for scales 0..3. `head_channels` > 0 appends a 1x1 conv head
+    `output_head_{s}` per scale (the depth decoder: one log-depth channel),
+    and the output takes its width."""
 
-    def __init__(self, enc_channels: Sequence[int]):
+    def __init__(self, enc_channels: Sequence[int], head_channels: int = 0):
         super().__init__()
+        self.head_channels = head_channels
         prev = list(enc_channels)
         for j in range(1, 5):
             max_i = 4 - j
@@ -68,6 +71,8 @@ class DecoderPP(nn.Module):
                 self.add_module(f"in_conv_{i}{j}", DoubleBasicBlock(n_parts * ch, ch))
                 if i + j == 4 and i != 0:
                     self.add_module(f"output_{i}", BasicBlock(ch, ch))
+                if i + j == 4 and head_channels:
+                    self.add_module(f"output_head_{i}", nn.Conv2d(ch, head_channels, 1))
             prev = list(NUM_CH_DEC[: max_i + 1]) + prev[max_i + 1:]
 
     def forward(self, enc_feats: Sequence[Tensor]) -> dict:
@@ -84,7 +89,10 @@ class DecoderPP(nn.Module):
                 out = getattr(self, f"in_conv_{i}{j}")(torch.cat(parts, dim=1))
                 col.append(out)
                 if i + j == 4:
-                    outputs[i] = out if i == 0 else getattr(self, f"output_{i}")(out)
+                    head = out if i == 0 else getattr(self, f"output_{i}")(out)
+                    if self.head_channels:
+                        head = getattr(self, f"output_head_{i}")(head)
+                    outputs[i] = head
             prev = col[::-1] + prev[max_i + 1:]
         return outputs
 

@@ -22,7 +22,7 @@ import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
-SOURCES = ("fused_volume.cu", "fused_volume_bwd.cu", "ray_head.cu")
+SOURCES = ("fused_volume.cu", "fused_volume_bwd.cu", "ray_head.cu", "warp_planes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may opt in to

@@ -1,20 +1,26 @@
-"""Optimizer and the BD training step, counterpart of
-implicit_depth_tpu/train/state.py (make_optimizer, make_bd_train_step).
+"""Optimizer and the training steps, counterpart of
+implicit_depth_tpu/train/state.py (make_optimizer, make_bd_train_step,
+make_regression_train_step).
 
 - AdamW (decoupled weight decay, eps 1e-8, on every parameter, as optax's
   `adamw` with a schedule) and the stepped learning rate x1 / x0.1 / x0.01
   at lr_steps, with optax.piecewise_constant_schedule's boundaries: the
   update with index i (0-based) runs at the rate for i, scaled by 0.1 once
   i >= lr_steps[0] and again once i >= lr_steps[1].
-- The step: flip ~ Bernoulli(0.5) from the step's torch.Generator (or given),
-  the edge mask of gt_depth sampled at the rays (nearest), the train forward
-  with batch norm in train mode, `binary_losses`, backward, optimizer step.
+- The BD step: flip ~ Bernoulli(0.5) from the step's torch.Generator (or
+  given), the edge mask of gt_depth sampled at the rays (nearest), the train
+  forward with batch norm in train mode, `binary_losses`, backward,
+  optimizer step.
+- The regression step: the same flip draw, GT normals from the NaN-masked
+  depth, DepthNet's train forward, predicted normals from depth_pred_0,
+  `regression_losses`, backward, optimizer step.
 
 Mixed precision: parameters stay f32; at bf16 compute the conv and dense
 stacks run under torch.autocast(dtype=bfloat16), the counterpart of flax's
-f32 params with `dtype=bfloat16`. BDNet keeps the pose products and the
-volume operands in f32 (autocast off there), and the kernels take the
-features in bf16 as their contract says.
+f32 params with `dtype=bfloat16`. The models keep the pose products and the
+volume geometry in f32 (autocast off there), and the kernels take the
+features in bf16 as their contracts say. The losses run in f32, outside
+autocast.
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ def edge_mask_at_rays(gt_depth: Tensor, rays: Tensor) -> Tensor:
     return grid_sample(edge, grid[:, :, None], mode="nearest")[:, :, 0, 0][..., None]
 
 
+def _draw_flip(gen: torch.Generator, train_flip: bool) -> bool:
+    return bool(torch.rand((), generator=gen) < 0.5) if train_flip else False
+
+
 def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.0,
                        regularisation_weight: float = 0.5, edge_regularisation: bool = True,
                        train_flip: bool = True,
@@ -63,7 +73,7 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
     def step(batch, flip: Optional[bool] = None) -> dict:
         cur_data, src_data = batch
         if flip is None:
-            flip = bool(torch.rand((), generator=gen) < 0.5) if train_flip else False
+            flip = _draw_flip(gen, train_flip)
         edge = None
         if edge_regularisation:
             with torch.no_grad():
@@ -77,6 +87,42 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
         losses = loss_lib.binary_losses(
             out["query_depth"], out["target_depth"][..., None], preds, pos_weight=pos_weight,
             regularisation_weight=regularisation_weight, edge_mask=edge)
+        optimizer.zero_grad(set_to_none=True)
+        losses["loss"].backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def make_regression_train_step(net, optimizer, scheduler=None, *, dataset: str = "scannet",
+                               train_flip: bool = True,
+                               generator: Optional[torch.Generator] = None) -> Callable:
+    """Returns step(batch, flip=None) -> losses (detached tensors) for a
+    DepthNet. batch = (cur_data, src_data) tensors on the net's device,
+    cur_data with depth (NaN invalid), mask and invK_s0; flip None draws
+    from `generator` (Bernoulli(0.5)) when train_flip is set, else no flip."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def step(batch, flip: Optional[bool] = None) -> dict:
+        cur_data, src_data = batch
+        if flip is None:
+            flip = _draw_flip(gen, train_flip)
+        cur_data = dict(cur_data)
+        with torch.no_grad():
+            depth = torch.where(cur_data["mask"], cur_data["depth"].float(), float("nan"))
+            cur_data["normals"] = image_ops.normals_from_depth(
+                torch.nan_to_num(depth, nan=0.0), cur_data["invK_s0"].float())
+        net.train()
+        cdt = net.compute_dtype
+        dev = cur_data["image"].device.type
+        with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
+            out = dict(net(cur_data, src_data, flip=flip))
+        out["normals_pred"] = image_ops.normals_from_depth(out["depth_pred_0"],
+                                                           cur_data["invK_s0"].float())
+        losses = loss_lib.regression_losses(cur_data, src_data, out, dataset=dataset)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         optimizer.step()

@@ -1,15 +1,24 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 fused metadata volume forward (#1) and backward (#2), the ray-head forward
-(#3) and backward (#4). The kernels are CUDA C++ for sm_90a and have no CPU
-mode, so these tests skip without an NVIDIA GPU; chip_smoke.py runs the
-same comparisons at the flagship shapes.
+(#3) and backward (#4), the plane-sweep warp (#5) and its transpose (#6).
+The kernels are CUDA C++ for sm_90a and have no CPU mode, so these tests
+skip without an NVIDIA GPU; chip_smoke.py runs the same comparisons at the
+main path's shapes.
 
 Tolerances: #1 atol 2e-3, rtol 1e-3 (f32 sums in another order; the JAX
 package holds its TPU kernel to the same bound). #2 at a small ragged shape
 atol 5e-3, rtol 5e-3 elementwise (tests/test_fused_volume.py:170-176;
 measured ~1e-6: the shape is small enough that no LeakyReLU pre-activation
 sits within rounding of 0). #3 atol 1e-5, rtol 1e-5 in f32; #4 1e-4 of
-each cotangent's largest value (f32 sums in another order).
+each cotangent's largest value (f32 sums in another order). #5 and #6 are
+held to the JAX package's bounds for its warp kernels against the XLA
+sampler (tests/test_warp_kernel.py): #5 atol 2e-4, rtol 1e-4, #6 atol
+3e-4, rtol 1e-3. The sample coordinates are the same bits on both sides
+(the kernels round them step by step, as the plain version does); the
+bilinear blend rounds in another order, and #6's float atomics add a
+source pixel's contributions in an order that changes from run to run. In
+bf16 one bf16 ulp (at most 2^-7 of the value) on top: both versions round
+one f32 value to bf16, and the two may straddle a rounding boundary.
 """
 
 import numpy as np
@@ -111,3 +120,135 @@ def test_ray_head_kernels_match_plain_versions(cuda, prior):
             continue
         err = (a.reshape(r.shape) - r).abs().max().item()
         assert err <= 1e-4 * r.abs().max().item() + 1e-6, name
+
+
+WARP_SHAPES = {
+    "small": dict(K=2, H=16, W=24, D=8),
+    "ragged": dict(K=3, H=13, W=37, D=5),
+}
+BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
+
+
+def _warp_inputs(K, H, W, D, dtype, device, seed=0):
+    """Source features, geometry with some samples behind the camera and
+    out of frame (chip_smoke.warp_operands), and a cotangent."""
+    import chip_smoke
+
+    src, A, b, planes = chip_smoke.warp_operands(K, H, W, D, dtype, seed=seed, device=device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    ct = torch.randn((K, D, H, W, 16), generator=gen).to(device, dtype)
+    return src, A, b, planes, ct
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(WARP_SHAPES))
+def test_warp_kernels_match_plain_versions(cuda, shape, dtype):
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    src, A, b, planes, ct = _warp_inputs(**WARP_SHAPES[shape], dtype=dtype, device=cuda)
+    before = wk.warp_planes.launches, wk.warp_planes_bwd.launches
+    out = wk.warp_planes(src, A, b, planes)
+    ref = wk.warp_planes_reference(src, A, b, planes)
+    g = wk.warp_planes_bwd(ct, A, b, planes)
+    gref = wk.warp_planes_bwd_reference(ct, A, b, planes)
+    torch.cuda.synchronize()
+    assert (wk.warp_planes.launches, wk.warp_planes_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and g.dtype == dtype
+    r, rg = ref.float().cpu().numpy(), gref.float().cpu().numpy()
+    ulp = 0.0 if dtype == torch.float32 else BF16_ULP
+    np.testing.assert_allclose(out.float().cpu().numpy(), r, atol=2e-4, rtol=1e-4 + ulp)
+    np.testing.assert_allclose(g.float().cpu().numpy(), rg, atol=3e-4, rtol=1e-3 + ulp)
+
+
+def test_warp_kernels_refuse_what_they_do_not_take(cuda):
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    src, A, b, planes, _ = _warp_inputs(2, 8, 12, 3, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        wk.warp_planes(src[..., :8].contiguous(), A, b, planes)  # 8 channels
+    with pytest.raises(ValueError):
+        wk.warp_planes(src, A.cpu(), b, planes)
+
+
+def test_plain_fused_volumes_run_no_warp_kernel(cuda):
+    """The plain versions of kernels #1 and #2 are built on the gather
+    sampler: running them launches neither warp kernel."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    ops = chip_smoke.volume_operands(B=1, K=2, H=8, W=12, D=5, dtype=torch.float32, seed=3)
+    ct = torch.randn((1, 5, 8, 12), generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = wk.warp_planes.launches, wk.warp_planes_bwd.launches
+    with torch.no_grad():
+        fvm.fused_metadata_volume_reference(*ops)
+    fvm.fused_metadata_volume_bwd_reference(ct, *ops[:14])
+    torch.cuda.synchronize()
+    assert (wk.warp_planes.launches, wk.warp_planes_bwd.launches) == before
+
+
+def _tiny_depth_net():
+    from implicit_depth_tpu_torch.models.depth_net import DepthNet
+    from implicit_depth_tpu_torch.weights import init_params
+
+    return init_params(DepthNet(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8),
+                       torch.Generator().manual_seed(0))
+
+
+def _regression_batch(device, seed=0):
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+
+    cur, src = synthetic_bd_batch(batch=2, num_src=2, height=64, width=96, num_rays=4,
+                                  samples_per_ray=2, seed=seed)
+    return ({k: torch.tensor(v, device=device) for k, v in cur.items()},
+            {k: torch.tensor(v, device=device) for k, v in src.items()})
+
+
+def test_depth_net_gpu_matches_cpu(cuda):
+    """Tiny DepthNet, eval forward: the GPU (kernel #5) against the CPU
+    (plain version), f32 with TF32 off; 1e-4 of the largest value."""
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    net = _tiny_depth_net().eval()
+    with torch.no_grad():
+        ref = net(*_regression_batch("cpu"))
+        before = wk.warp_planes.launches
+        got = net.to(cuda)(*_regression_batch(cuda))
+    assert wk.warp_planes.launches == before + 1
+    for key, r in ref.items():
+        err = (got[key].cpu() - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), key
+
+
+def test_regression_train_step_gpu_matches_cpu(cuda):
+    """One f32 regression train step of the tiny DepthNet, flip on: GPU
+    (kernels #5, #6) against CPU (plain versions), held to chip_smoke.py's
+    bounds for the same comparison at flagship width (MODEL_LOSS_REL,
+    MODEL_GRAD_L2: f32 sums in other orders, LeakyReLU slope ties and the
+    transpose's atomics, through the backward of ~40 layers; on the CPU the
+    JAX package's own f32 step is 4e-2 per parameter from float64,
+    tests/test_torch_regression_train.py)."""
+    import copy
+
+    import chip_smoke
+
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+    from implicit_depth_tpu_torch.train import state
+
+    net = _tiny_depth_net()
+    runs = {}
+    for dev in ("cpu", cuda):
+        n = copy.deepcopy(net).to(dev)
+        opt, sched = state.make_optimizer(n.parameters(), lr=1e-4, wd=1e-4)
+        step = state.make_regression_train_step(n, opt, sched)
+        before = wk.warp_planes.launches, wk.warp_planes_bwd.launches
+        losses = step(_regression_batch(dev), flip=True)
+        launched = (wk.warp_planes.launches - before[0], wk.warp_planes_bwd.launches - before[1])
+        runs[str(dev)] = (float(losses["loss"]), launched,
+                          {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()})
+    (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = runs["cpu"], runs[str(cuda)]
+    assert n_cpu == (0, 0) and n_gpu == (1, 1)
+    assert abs(l_gpu - l_cpu) <= chip_smoke.MODEL_LOSS_REL * abs(l_cpu)
+    num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
+    den = sum((g ** 2).sum().item() for g in g_cpu.values())
+    assert (num / den) ** 0.5 <= chip_smoke.MODEL_GRAD_L2, (num / den) ** 0.5
