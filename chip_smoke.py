@@ -8,17 +8,21 @@ non-zero:
 1. device:      the card's name and power limit (nvidia-smi).
 2. build:       nvcc builds the four kernel libraries from
                 implicit_depth_tpu_torch/csrc/, one process per source, all at
-                once; the ptxas register and spill report of each.
+                once; the ptxas register and spill report of each, and the
+                count of tensor-core (HMMA) instructions in kernel #2's.
 3. kernel:      the fused-volume forward (kernel #1) against its plain
                 PyTorch version, at the flagship shape (B=1, K=7, C=16, H=96,
                 W=128, D=64, F=128) with f32 and bf16 features, and at a
-                ragged shape; max error against the stated tolerance,
+                ragged shape; errors against the stated tolerances,
                 CUDA-event medians.
-4. kernel-bwd:  the fused-volume backward (kernel #2) against autograd of the
-                plain forward, at B=1 of the flagship shape (f32 and bf16
-                features) and at the ragged shape; per cotangent, the
-                relative L2 error and the share of elements outside the JAX
-                package's elementwise gradient bound; medians.
+4. kernel-bwd:  the fused-volume backward (kernel #2; bf16 on tensor cores,
+                f32 on CUDA cores) against its plain version (the JAX
+                kernel's backward with its bf16 rounding points), at B=1 of
+                the flagship shape (f32 and bf16 features) and at the ragged
+                shape; per cotangent, the relative L2 error and the share of
+                elements outside an elementwise bound; how far the plain
+                version itself moves under 1e-5 noise on its input; medians;
+                then the bf16 kernel alone at the train step's b=12.
 5. kernel-ray:  the ray-head forward and backward (kernels #3, #4) against
                 their plain versions at b=12, N=4096, S=64 (bf16, with and
                 without the prior) and at a ragged N=100, S=13 (f32).
@@ -75,16 +79,29 @@ import numpy as np
 import torch
 
 ATOL, RTOL = 2e-3, 1e-3  # kernel vs plain: f32 sums in another order (as the JAX test)
-# Volume backward vs autograd of the plain forward. Both sum in f32, in
-# other orders; where a pre-activation lies within rounding of 0 the two
-# take different LeakyReLU slopes (1 vs 0.01), which shows as isolated
-# large differences. So the bounds are on the relative L2 error of each
-# cotangent and, for the per-point cotangents (dsrc, dcur, dbase), on the
-# share of elements outside the JAX package's elementwise gradient bound
-# (atol 5e-3, rtol 5e-3, tests/test_fused_volume.py:170-176). A weight
-# gradient sums over every point, so each such tie moves a whole row of it:
-# there only the relative L2 error is bounded.
-VOL_REL_L2, VOL_OUTSIDE, VOL_ATOL, VOL_RTOL = 2e-2, 1e-2, 5e-3, 5e-3
+# In bf16 the kernels and their plain versions round the same f32 values to
+# bf16 where the JAX kernels round their matrix operands (#1: the warped
+# visuals and h1; #2: vis, h1, dh2p, dacc). Where the two sides' f32 values
+# differ in their last bits (sums and sample coordinates rounded in another
+# order) they round one bf16 ulp (up to 2^-7 of the value) apart, and a
+# LeakyReLU pre-activation near 0 may then take the other slope. So #1 in
+# bf16 meets ATOL, RTOL at all but a share VOL_FWD_BF16_OUTSIDE of the
+# points, and its relative L2 error is bounded.
+VOL_FWD_BF16_REL_L2, VOL_FWD_BF16_OUTSIDE = 2e-3, 2e-3
+# Volume backward vs its plain version. Both sum in f32, in other orders;
+# where a pre-activation lies within rounding of 0 the two take different
+# LeakyReLU slopes (1 vs 0.01), which shows as isolated large differences.
+# So the bounds are on the relative L2 error of each cotangent and, for the
+# per-point cotangents (dsrc, dcur, dbase), on the share of elements outside
+# an elementwise bound: the JAX package's gradient bound in f32 (atol 5e-3,
+# rtol 5e-3, tests/test_fused_volume.py:170-176), five bf16 ulps in bf16
+# (the rounding straddles above, which also make slope flips more common;
+# kernel-bwd prints how far the plain version itself moves under 1e-5
+# relative noise on `base`). A weight gradient sums over every point, so
+# each such tie moves a whole row of it: there only the relative L2 error
+# is bounded. {dtype: (relative L2, share outside, atol, rtol)}
+VOL_TOL = {torch.float32: (2e-2, 1e-2, 5e-3, 5e-3), torch.bfloat16: (2e-2, 1e-2, 2e-2, 2e-2)}
+TRAIN_VOLUME = dict(B=12, K=7, H=96, W=128, D=64)  # the BD train step's volume (b=12)
 # Ray head: the forward's output takes fp's dtype; bf16 rounds the f32
 # result, so two ulps of bf16 (rtol 1e-2). The backward's cotangents are f32
 # from the same f32 math: 1e-4 of each cotangent's largest value.
@@ -140,6 +157,14 @@ def phase_build() -> None:
         ptxas = " | ".join(ln.strip().replace("ptxas info    : ", "") for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln)
         print(f"  {source} -> {lib.name}: {ptxas}", flush=True)
+    sass = subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-sass",
+                           str(libs["fused_volume_bwd.cu"])],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = sum("HMMA" in ln for ln in sass.splitlines())
+    print(f"  fused_volume_bwd.cu: {hmma} HMMA (tensor-core) instructions in its SASS "
+          "(cuobjdump -sass)", flush=True)
+    if hmma == 0:
+        raise AssertionError("the volume backward's library holds no tensor-core instruction")
 
 
 def volume_operands(B: int, K: int, H: int, W: int, D: int, dtype, seed: int = 0) -> tuple:
@@ -186,13 +211,8 @@ def phase_kernel() -> dict:
             ref = fused_metadata_volume_reference(*ops)
             torch.cuda.synchronize()
             err = (got - ref).abs()
-            bound = ATOL + RTOL * ref.abs()
-            if got.shape != ref.shape or not torch.isfinite(got).all() or (err > bound).any():
-                raise AssertionError(
-                    f"kernel disagrees with its plain version ({label}): max_abs_err "
-                    f"{err.max().item():.3e}, worst excess {(err - bound).max().item():.3e}")
-            line = (f"kernel {label} {tuple(ref.shape)}: max_abs_err {err.max().item():.3e} "
-                    f"(bound {ATOL} + {RTOL}*|ref|, max|ref| {ref.abs().max().item():.3f})")
+            line = (f"kernel {label} {tuple(ref.shape)}: {check_volume(label, got, ref, dtype)}, "
+                    f"max|ref| {ref.abs().max().item():.3f}")
             if shape is FLAGSHIP:
                 ms = cuda_ms(lambda: fused_metadata_volume(*ops))
                 plain_ms = cuda_ms(lambda: fused_metadata_volume_reference(*ops))
@@ -230,9 +250,27 @@ def volume_bwd_macs(K: int) -> int:
     return volume_fwd_macs(K) + 2 * F_ * F_ + 2 * K * C_ * F_ + 7 * K * F_ + F_
 
 
-def _cotangent_stats(label: str, got, ref) -> float:
-    """Checks each cotangent of kernel #2 against its plain version;
-    returns the largest max-abs error."""
+def check_volume(label: str, got, ref, dtype) -> str:
+    """Kernel #1 against its plain version: in f32 every point within ATOL,
+    RTOL; in bf16 all but a share VOL_FWD_BF16_OUTSIDE, and the relative L2
+    error within VOL_FWD_BF16_REL_L2. Raises; returns a summary."""
+    err = (got - ref).abs()
+    outside = (err > ATOL + RTOL * ref.abs()).float().mean().item()
+    rel_l2 = (err.norm() / ref.norm()).item()
+    share, rel = (0.0, float("inf")) if dtype == torch.float32 else (VOL_FWD_BF16_OUTSIDE,
+                                                                       VOL_FWD_BF16_REL_L2)
+    if got.shape != ref.shape or not torch.isfinite(got).all() or outside > share or rel_l2 > rel:
+        raise AssertionError(f"kernel disagrees with its plain version ({label}): max_abs_err "
+                             f"{err.max().item():.3e}, {outside:.3e} of the points outside {ATOL} + "
+                             f"{RTOL}*|ref| (bound {share}), relative L2 {rel_l2:.3e} (bound {rel})")
+    return (f"max_abs_err {err.max().item():.3e}, {outside:.2e} of the points outside {ATOL} + "
+            f"{RTOL}*|ref| (bound {share}), relative L2 {rel_l2:.2e}")
+
+
+def check_cotangents(label: str, got, ref, dtype) -> float:
+    """Checks each cotangent of kernel #2 against its plain version with
+    the bounds VOL_TOL[dtype]; returns the largest max-abs error."""
+    rel_bound, share_bound, atol, rtol = VOL_TOL[dtype]
     worst_l2, worst_out, worst_abs = (0.0, ""), (0.0, ""), 0.0
     for name in got._fields:
         a, r = getattr(got, name).float(), getattr(ref, name).float()
@@ -243,25 +281,29 @@ def _cotangent_stats(label: str, got, ref) -> float:
         rel_l2 = (d.norm() / r.norm().clamp_min(1e-30)).item()
         outside = 0.0
         if name in ("dsrc", "dcur", "dbase"):
-            outside = (d > VOL_ATOL + VOL_RTOL * r.abs()).float().mean().item()
-        if rel_l2 > VOL_REL_L2 or outside > VOL_OUTSIDE:
+            outside = (d > atol + rtol * r.abs()).float().mean().item()
+        if rel_l2 > rel_bound or outside > share_bound:
             raise AssertionError(f"kernel-bwd {label}: {name} disagrees with the plain version: "
-                                 f"relative L2 {rel_l2:.3e} (bound {VOL_REL_L2}), {outside:.3e} "
-                                 f"of elements outside the elementwise bound (bound {VOL_OUTSIDE})")
+                                 f"relative L2 {rel_l2:.3e} (bound {rel_bound}), {outside:.3e} "
+                                 f"of elements outside the elementwise bound (bound {share_bound})")
         worst_l2 = max(worst_l2, (rel_l2, name))
         worst_out = max(worst_out, (outside, name))
         worst_abs = max(worst_abs, d.max().item())
     print(f"kernel-bwd {label}: 10 cotangents; worst relative L2 {worst_l2[0]:.2e} ({worst_l2[1]}, "
-          f"bound {VOL_REL_L2}), worst share of per-point elements outside atol {VOL_ATOL} + "
-          f"rtol {VOL_RTOL} "
-          f"{worst_out[0]:.2e} ({worst_out[1]}, bound {VOL_OUTSIDE}), max_abs_err {worst_abs:.3e}",
-          flush=True)
+          f"bound {rel_bound}), worst share of per-point elements outside atol {atol} + "
+          f"rtol {rtol} {worst_out[0]:.2e} ({worst_out[1]}, bound {share_bound}), max_abs_err "
+          f"{worst_abs:.3e}", flush=True)
     return worst_abs
+
+
+def _worst_rel_l2(got, ref) -> tuple:
+    return max(((getattr(got, n) - getattr(ref, n)).norm().item()
+                / getattr(ref, n).norm().clamp_min(1e-30).item(), n) for n in got._fields)
 
 
 def phase_kernel_bwd() -> dict:
     from implicit_depth_tpu_torch.ops.fused_volume import (
-        fused_metadata_volume_bwd, fused_metadata_volume_bwd_reference)
+        bwd_smem_bytes, fused_metadata_volume_bwd, fused_metadata_volume_bwd_reference)
 
     result = {}
     for label, shape, dtype in (("flagship f32", FLAGSHIP, torch.float32),
@@ -275,19 +317,55 @@ def phase_kernel_bwd() -> dict:
         got = fused_metadata_volume_bwd(ct, *ops)
         ref = fused_metadata_volume_bwd_reference(ct, *ops)
         torch.cuda.synchronize()
-        err = _cotangent_stats(label, got, ref)
+        err = check_cotangents(label, got, ref, dtype)
         if shape is FLAGSHIP:
+            # how far the plain version itself moves when its f32 inputs move
+            # in the last bits: 1e-5 relative noise on `base`
+            noisy = list(ops)
+            noisy[7] = ops[7] * (1 + 1e-5 * torch.randn(ops[7].shape, generator=gen, device="cuda"))
+            sens = _worst_rel_l2(fused_metadata_volume_bwd_reference(ct, *noisy), ref)
+            del noisy
             ms = cuda_ms(lambda: fused_metadata_volume_bwd(ct, *ops))
             plain_ms = cuda_ms(lambda: fused_metadata_volume_bwd_reference(ct, *ops), runs=5)
             points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
             b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got),
                                2.0 * points * volume_bwd_macs(shape["K"]))
-            print(f"kernel-bwd {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (medians), "
-                  f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+            print(f"kernel-bwd {label}: the plain version under 1e-5 relative noise on base moves "
+                  f"by a worst relative L2 of {sens[0]:.2e} ({sens[1]}); kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms (medians), bound {b_ms:.4f} ms ({b_by}); shared memory "
+                  f"{bwd_smem_bytes(shape['K'], dtype)} bytes per block", flush=True)
             result[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": b_ms, "bound_by": b_by}
         del ops, got, ref
+    result["train bf16"] = _volume_bwd_train_shape()
     return result
+
+
+def _volume_bwd_train_shape() -> dict:
+    """Kernel #2 alone at the BD train step's shape (TRAIN_VOLUME, bf16):
+    finite cotangents of the right shapes, its median time and bound. The
+    plain version is not run at this size (device memory)."""
+    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume_bwd
+
+    shape = TRAIN_VOLUME
+    ops = volume_operands(**shape, dtype=torch.bfloat16)[:14]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ct = torch.randn((shape["B"], shape["D"], shape["H"], shape["W"]), generator=gen, device="cuda")
+    got = fused_metadata_volume_bwd(ct, *ops)
+    torch.cuda.synchronize()
+    want = {"dsrc": ops[1].shape, "dcur": ops[0].shape, "dbase": ops[7].shape,
+            "dw_visT": ops[8].shape, "dw_metaT": ops[9].shape, "dw_fc1T": ops[11].shape}
+    for name in got._fields:
+        g = getattr(got, name)
+        if not torch.isfinite(g).all() or (name in want and g.shape != want[name]):
+            raise AssertionError(f"kernel-bwd train bf16: {name} {tuple(g.shape)} non-finite or "
+                                 "of the wrong shape")
+    ms = cuda_ms(lambda: fused_metadata_volume_bwd(ct, *ops))
+    points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
+    b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got), 2.0 * points * volume_bwd_macs(shape["K"]))
+    print(f"kernel-bwd train bf16 {tuple(ct.shape)} (B, D, H, W), K={shape['K']}: kernel {ms:.3f} ms "
+          f"(median of {TIMED_RUNS}), bound {b_ms:.4f} ms ({b_by}); cotangents finite", flush=True)
+    return {"shape": "B=12 K=7 96x128 D=64 bf16", "ms": ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def ray_inputs(b: int, n: int, s: int, prior: bool, dtype, seed: int = 0) -> tuple:
@@ -969,11 +1047,13 @@ def main() -> int:
              reg_res["launches"][4]),
             ("warp_planes_bwd", "warp_planes.cu", "warp_kernel.py:199",
              kern_warp["train bf16"]["bwd"], reg_res["launches"][5]))
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": name, "route": "cuda", "source": csrc + source, "replaces": tpu + replaces,
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r.get("library_ms")} for name, source, replaces, r, launches in rows]}))
+        "library_ms": r.get("library_ms")} for name, source, replaces, r, launches in rows]
+    kernels[1]["train_shape"] = kern_bwd["train bf16"]  # #2 alone at the train step's b=12
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

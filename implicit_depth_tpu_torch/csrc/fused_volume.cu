@@ -24,7 +24,10 @@
 // read is a warp-wide broadcast (no bank conflicts) feeding four FMAs per
 // 16-byte load. Persistent blocks (one per SM, 227 KB shared memory budget)
 // stage the weights once and walk the points with a grid-stride loop.
-// f32 FMA accumulation throughout; tensor-core MMAs are later work.
+// f32 FMA accumulation throughout; tensor-core MMAs are later work. With bf16
+// features the warped visuals and h1 are rounded to bf16 before their
+// products, where the JAX kernel rounds its matrix operands, so that this
+// forward and the tensor-core backward linearise at the same point.
 
 #include "fused_volume_common.cuh"
 
@@ -116,10 +119,12 @@ __global__ void __launch_bounds__(THREADS, 1) fused_volume_kernel(
       float val[C];
       sample16(src + (long long)bk * HW * C, sp.x, sp.y, H, W, val);
 
-      // fc0 rows of the warped source visuals
+      // fc0 rows of the warped source visuals, rounded to T first (the JAX
+      // kernel's operand, implicit_depth_tpu/ops/fused_volume.py:207); the
+      // dot metadata below takes the unrounded samples, as there
       const float* wv = s_vis + k * C * F;
 #pragma unroll
-      for (int c = 0; c < C; ++c) axpy_row(val[c], wv + c * F, h);
+      for (int c = 0; c < C; ++c) axpy_row(round_to<T>(val[c]), wv + c * F, h);
 
       // closed-form metadata
       float m[4];
@@ -133,8 +138,9 @@ __global__ void __launch_bounds__(THREADS, 1) fused_volume_kernel(
       axpy_row(m[3], wm + 5 * F, h);
     }
 
+    // h1, rounded to T as fc1's operand (:239)
 #pragma unroll
-    for (int f = 0; f < F; ++f) h[f] = h[f] > 0.f ? h[f] : 0.01f * h[f];
+    for (int f = 0; f < F; ++f) h[f] = round_to<T>(h[f] > 0.f ? h[f] : 0.01f * h[f]);
 
     // fc1 + LeakyReLU + fc2, one hidden unit of layer 2 at a time
     float acc = bias2;

@@ -17,6 +17,17 @@ constexpr int NMETA = 6;    // live metadata rows per view: z, dot, angle, ray x
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// x rounded to T and back: the operand rounding of a bf16 matrix product
+// (f32 accumulation), where the TPU kernels round
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // val[c] += w * p[c] for the 16 channels at p (16-byte aligned)
 __device__ __forceinline__ void accum16(const float* p, float w, float* val) {
   const float4* q = reinterpret_cast<const float4*>(p);

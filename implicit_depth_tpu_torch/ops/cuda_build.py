@@ -30,12 +30,13 @@ SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may opt in to
 _libs: dict = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump) on PATH or in
+    $CUDA_HOME/bin."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    path = shutil.which(name) or os.path.join(cuda_home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin); "
-                           "the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found (looked on PATH and in $CUDA_HOME/bin)")
     return path
 
 
@@ -55,7 +56,7 @@ def build(sources=SOURCES) -> dict:
     todo = {s: p for s, p in paths.items() if not p.exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
+        nvcc = cuda_tool("nvcc")
         procs = []
         for s, out in todo.items():
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")

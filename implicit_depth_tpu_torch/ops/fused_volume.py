@@ -15,13 +15,19 @@ and csrc/fused_volume_bwd.cu; this module holds
   repacked first-layer weights. The CPU tests and chip_smoke.py compare
   against it.
 - `fused_metadata_volume_bwd`: the backward's dispatch wrapper (the VJP
-  w.r.t. the tensor operands), with its own `launches` count, and
-  `fused_metadata_volume_bwd_reference`, its plain version (autograd of
-  the plain forward).
+  w.r.t. the tensor operands), with its own `launches` count; by the
+  features' dtype it launches the f32 CUDA-core kernel or the bf16
+  tensor-core kernel, both in csrc/fused_volume_bwd.cu.
+  `fused_metadata_volume_bwd_reference` is its plain version: the JAX
+  kernel's backward written out in tensor code.
 - `fused_metadata_volume_train`: a `torch.autograd.Function` over the
   operands whose forward is the forward wrapper and whose backward is the
   backward wrapper. Geometry (A, b, origins, invK, planes) gets no
   gradient: it is a constant of the training graph.
+
+Both plain versions compute in f32 and, with bf16 features, round to bf16
+where the JAX kernels round their matrix operands (the warped visuals, h1,
+dh2p, dacc), as the CUDA kernels do.
 
 Libraries are built by ops/cuda_build.py at the first CUDA call.
 
@@ -57,7 +63,8 @@ _SIGNATURES = {
     "fused_volume_bwd.cu": {
         **{name: ([_PTR] * 20 + [ctypes.c_int] * 6 + [_PTR], ctypes.c_int)
            for name in ("fused_metadata_volume_bwd_f32", "fused_metadata_volume_bwd_bf16")},
-        "fused_metadata_volume_bwd_slab_len": ([ctypes.c_int], ctypes.c_longlong)},
+        "fused_metadata_volume_bwd_slab_len": ([ctypes.c_int], ctypes.c_longlong),
+        "fused_metadata_volume_bwd_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong)},
 }
 
 
@@ -117,15 +124,31 @@ def smem_bytes(num_views: int) -> int:
     return 4 * (num_views * (CHANNELS + 6) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN)
 
 
-BWD_TILE = 64  # pixels per backward tile (= threads per block)
+# pixels per backward tile: the f32 kernel's one thread per pixel, the bf16
+# kernel's 8 warps of 16-row mma tiles
+BWD_TILE = {torch.float32: 64, torch.bfloat16: 128}
+BWD_BF16_VIEWS = 7  # views the bf16 kernel's fixed shared-memory layout holds
 
 
-def bwd_smem_bytes(num_views: int) -> int:
-    """Dynamic shared memory of one backward block: the forward's weights
-    plus the X (tile x F+4) and Y stages (csrc/fused_volume_bwd.cu)."""
-    n = max(HIDDEN, num_views * CHANNELS + -(-num_views * 6 // 8) * 8)
-    ys = n + (4 - n % 8 + 8) % 8
-    return smem_bytes(num_views) + 4 * BWD_TILE * (HIDDEN + 4 + ys)
+def bwd_smem_bytes(num_views: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one backward block (csrc/fused_volume_bwd.cu).
+    f32 features: the forward's f32 weights plus the X (tile x F+4) and Y
+    stages. bf16: W1 and W_vis^T as bf16 with rows padded by 8, W_meta and
+    three F-vectors as f32, the tile's stages (bf16 visuals, f32 metadata,
+    sample positions, cotangent), the 8 warps' three column sums, and
+    h1 | dh2p in bf16 sharing their space with the f32 dacc stage; the
+    layout is fixed at compile time for BWD_BF16_VIEWS views (what more
+    views would take is returned for K beyond it)."""
+    k, c, f = num_views, CHANNELS, HIDDEN
+    if dtype == torch.float32:
+        n = max(f, k * c + -(-k * 6 // 8) * 8)
+        ys = n + (4 - n % 8 + 8) % 8
+        return smem_bytes(k) + 4 * BWD_TILE[dtype] * (f + 4 + ys)
+    k = max(k, BWD_BF16_VIEWS)
+    p, ldh, ldv, ldm = BWD_TILE[dtype], f + 8, k * c + 8, 6 * k + 2
+    weights = 2 * f * (ldh + ldv) + 4 * 6 * k * f + 4 * 3 * f
+    stages = 2 * p * ldv + 4 * p * ldm + 8 * p * k + 4 * p + 4 * (p // 16) * 3 * f
+    return weights + stages + max(2 * 2 * p * ldh, 4 * p * (f + 4))
 
 
 def _launch(ops: tuple, dims: tuple) -> Tensor:
@@ -166,6 +189,50 @@ def fused_metadata_volume(cur: Tensor, src: Tensor, A: Tensor, b: Tensor, origin
 fused_metadata_volume.launches = 0
 
 
+def _rounding(dtype):
+    """x -> x rounded to bf16 and back to f32 for bf16 features, the
+    identity for f32 ones: the operand rounding of the JAX kernels' matrix
+    products (f32 accumulation of bf16 operands)."""
+    if dtype == torch.float32:
+        return lambda x: x
+    return lambda x: x.to(dtype).float()
+
+
+class _ForwardParts(NamedTuple):
+    feats: Tensor  # (B, K, D, H, W, C) f32 warped source features
+    vis: Tensor    # (B, D, H, W, K*C) the same, fc0's operand (rounded)
+    meta: Tensor   # (B, D, H, W, K*8) f32 metadata rows
+    acc: Tensor    # (B, D, H, W, F) fc0 pre-activation
+    h1: Tensor     # (B, D, H, W, F) LeakyReLU(acc), fc1's operand (rounded)
+    h2p: Tensor    # (B, D, H, W, F) fc1 pre-activation
+
+
+def _forward_parts(cur32: Tensor, src32: Tensor, A: Tensor, b: Tensor, origins: Tensor,
+                   invK: Tensor, planes: Tensor, base: Tensor, w_visT: Tensor, w_metaT: Tensor,
+                   w_plane: Tensor, w_fc1T: Tensor, b_fc1: Tensor, rnd) -> _ForwardParts:
+    """The kernels' forward up to fc1's pre-activation, in f32 on f32
+    features, with `rnd` at the JAX kernel's two rounding points (the warped
+    visuals before fc0, h1 before fc1; implicit_depth_tpu/ops/fused_volume.py
+    :207, :239). The dot metadata takes the unrounded warp, as there."""
+    B, K, H, W, C = src32.shape
+    D = planes.shape[0]
+    no_pose = torch.zeros((B, K, 3), dtype=torch.float32, device=src32.device)
+    wv = warped_views_from_components(cur32, src32, A, b, origins, invK, planes, no_pose,
+                                      compute_dtype=torch.float32)
+    vis = rnd(wv.feats.permute(0, 2, 3, 4, 1, 5).reshape(B, D, H, W, K * C))
+    zero = torch.zeros_like(wv.depths)
+    meta = torch.stack([wv.depths, wv.dot, wv.ray_angle, wv.src_rays[..., 0],
+                        wv.src_rays[..., 1], wv.src_rays[..., 2], zero, zero], dim=-1)
+    meta = meta.permute(0, 2, 3, 4, 1, 5).reshape(B, D, H, W, K * 8)
+
+    acc = base.permute(0, 1, 3, 2)[:, None]  # (B, 1, H, W, F)
+    acc = acc + planes[None, :, None, None, None] * w_plane[:, 0]
+    acc = acc + vis @ w_visT.float().t() + meta @ w_metaT.t()
+    h1 = rnd(F.leaky_relu(acc, 0.01))
+    h2p = h1 @ w_fc1T.float().t() + b_fc1[:, 0]
+    return _ForwardParts(wv.feats, vis, meta, acc, h1, h2p)
+
+
 def fused_metadata_volume_reference(cur: Tensor, src: Tensor, A: Tensor, b: Tensor,
                                     origins: Tensor, invK: Tensor, planes: Tensor,
                                     base: Tensor, w_visT: Tensor, w_metaT: Tensor,
@@ -173,24 +240,12 @@ def fused_metadata_volume_reference(cur: Tensor, src: Tensor, A: Tensor, b: Tens
                                     w_fc2: Tensor, b_fc2: Tensor) -> Tensor:
     """Plain PyTorch version of the kernel on the same operands, in f32:
     the warp and metadata tensors of volumes/cost_volume.py, then the MLP
-    with the repacked weights (pose and mask terms are inside `base`)."""
-    B, K, H, W, C = src.shape
-    D = planes.shape[0]
-    no_pose = torch.zeros((B, K, 3), dtype=torch.float32, device=src.device)
-    wv = warped_views_from_components(cur.float(), src.float(), A, b, origins, invK,
-                                      planes, no_pose, compute_dtype=torch.float32)
-    vis = wv.feats.permute(0, 2, 3, 4, 1, 5).reshape(B, D, H, W, K * C)
-    zero = torch.zeros_like(wv.depths)
-    meta = torch.stack([wv.depths, wv.dot, wv.ray_angle, wv.src_rays[..., 0],
-                        wv.src_rays[..., 1], wv.src_rays[..., 2], zero, zero], dim=-1)
-    meta = meta.permute(0, 2, 3, 4, 1, 5).reshape(B, D, H, W, K * 8)
-
-    h1 = base.permute(0, 1, 3, 2)[:, None]  # (B, 1, H, W, F)
-    h1 = h1 + planes[None, :, None, None, None] * w_plane[:, 0]
-    h1 = h1 + vis @ w_visT.float().t() + meta @ w_metaT.t()
-    h1 = F.leaky_relu(h1, 0.01)
-    h2 = F.leaky_relu(h1 @ w_fc1T.float().t() + b_fc1[:, 0], 0.01)
-    return (h2 @ w_fc2 + b_fc2)[..., 0]
+    with the repacked weights (pose and mask terms are inside `base`). With
+    bf16 features the warped visuals and h1 are rounded to bf16 before their
+    products, as the JAX kernel rounds them."""
+    parts = _forward_parts(cur.float(), src.float(), A, b, origins, invK, planes, base, w_visT,
+                           w_metaT, w_plane, w_fc1T, b_fc1, _rounding(src.dtype))
+    return (F.leaky_relu(parts.h2p, 0.01) @ w_fc2 + b_fc2)[..., 0]
 
 
 class FusedVolumeCotangents(NamedTuple):
@@ -213,22 +268,22 @@ def _launch_bwd(ct: Tensor, ops: tuple, dims: tuple) -> FusedVolumeCotangents:
     B, K, H, W, C, D, F_ = dims
     if C != CHANNELS or F_ != HIDDEN:
         raise ValueError(f"the kernel is compiled for C={CHANNELS}, F={HIDDEN}; got C={C}, F={F_}")
-    if bwd_smem_bytes(K) > SMEM_LIMIT:
-        raise ValueError(f"K={K} source views need {bwd_smem_bytes(K)} bytes of shared memory "
-                         "in the backward")
+    cdt = ops[1].dtype
+    if bwd_smem_bytes(K, cdt) > SMEM_LIMIT:
+        raise ValueError(f"K={K} source views need {bwd_smem_bytes(K, cdt)} bytes of shared "
+                         "memory in the backward")
     cuda_build.check_aligned(ops + (ct,), "fused_metadata_volume_bwd")
     dev = ct.device
     lib = _library("fused_volume_bwd.cu")
     slab = lib.fused_metadata_volume_bwd_slab_len(K)
-    nslabs = max(1, min(-(-(B * H * W) // BWD_TILE), cuda_build.sm_count(dev)))
+    nslabs = max(1, min(-(-(B * H * W) // BWD_TILE[cdt]), cuda_build.sm_count(dev)))
     f32 = torch.float32
     dbase = torch.zeros((B, H, F_, W), dtype=f32, device=dev)
-    dcur = torch.empty((B, H, W, C), dtype=f32, device=dev)
+    dcur = torch.zeros((B, H, W, C), dtype=f32, device=dev)
     dsrc = torch.zeros((B, K, H, W, C), dtype=f32, device=dev)
     slabs = torch.zeros((nslabs, slab), dtype=f32, device=dev)
     grads = torch.empty((slab,), dtype=f32, device=dev)
-    fn = (lib.fused_metadata_volume_bwd_f32 if ops[1].dtype == f32
-          else lib.fused_metadata_volume_bwd_bf16)
+    fn = lib.fused_metadata_volume_bwd_f32 if cdt == f32 else lib.fused_metadata_volume_bwd_bf16
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in ops), ct.data_ptr(), dbase.data_ptr(),
@@ -275,17 +330,49 @@ def fused_metadata_volume_bwd_reference(ct: Tensor, cur: Tensor, src: Tensor, A:
                                         planes: Tensor, base: Tensor, w_visT: Tensor,
                                         w_metaT: Tensor, w_plane: Tensor, w_fc1T: Tensor,
                                         b_fc1: Tensor, w_fc2: Tensor) -> FusedVolumeCotangents:
-    """Plain version of the backward: autograd of
-    `fused_metadata_volume_reference` in f32 on the same operands."""
-    leaves = [t.detach().float().requires_grad_(True)
-              for t in (src, cur, base, w_visT, w_metaT, w_plane, w_fc1T, b_fc1, w_fc2)]
-    src32, cur32, base32, wv, wm, wp, w1, b1, w2 = leaves
-    b2 = torch.zeros((1,), dtype=torch.float32, device=src.device, requires_grad=True)
+    """Plain version of the backward: the JAX kernel's backward
+    (`_fused_bwd_kernel`) written out in tensor code, in f32. With bf16
+    features it rounds vis, h1, dh2p and dacc to bf16 before the products
+    that take them, where that kernel does (implicit_depth_tpu/ops/
+    fused_volume.py:487, :522, :534, :539); dW_metaT, ddot, dw_plane and the
+    bias and fc2 gradients come from the f32 values, as there. Autograd
+    carries only the warped features' cotangent through the gather's
+    transpose to dsrc."""
+    B, K, H, W, C = src.shape
+    F_ = base.shape[2]
+    rnd = _rounding(src.dtype)
+    ct, A, b, origins, invK, planes, base, w_visT, w_metaT, w_plane, w_fc1T, b_fc1, w_fc2 = (
+        x.detach() for x in (ct, A, b, origins, invK, planes, base, w_visT, w_metaT, w_plane,
+                             w_fc1T, b_fc1, w_fc2))
+    src32 = src.detach().float().requires_grad_(True)
+    cur32 = cur.detach().float()
     with torch.enable_grad():
-        out = fused_metadata_volume_reference(cur32, src32, A, b, origins, invK, planes,
-                                              base32, wv, wm, wp, w1, b1, w2, b2)
-        grads = torch.autograd.grad(out, leaves + [b2], ct)
-    return FusedVolumeCotangents(*grads)
+        p = _forward_parts(cur32, src32, A, b, origins, invK, planes, base, w_visT, w_metaT,
+                           w_plane, w_fc1T, b_fc1, rnd)
+    vis, meta, acc, h1, h2p = (x.detach() for x in p[1:])
+
+    def slope(x):
+        return torch.where(x > 0, 1.0, 0.01)
+
+    def rows(x):  # (..., n) -> (points, n)
+        return x.reshape(-1, x.shape[-1])
+
+    ctx = ct[..., None]                                  # (B, D, H, W, 1)
+    dh2p = w_fc2[:, 0] * ctx * slope(h2p)
+    dh2pc = rnd(dh2p)
+    dacc = (dh2pc @ w_fc1T.float()) * slope(acc)        # dh1 leaky'(acc)
+    daccc = rnd(dacc)
+    ddot = dacc @ w_metaT.reshape(F_, K, 8)[:, :, 1]     # (B, D, H, W, K)
+    dvis = (daccc @ w_visT.float()).reshape(B, *ddot.shape[1:], C)
+    dcur = (vis.reshape(dvis.shape) * ddot[..., None]).sum(dim=(1, 4))
+    dwarped = dvis + cur32[:, None, :, :, None] * ddot[..., None]
+    dsrc, = torch.autograd.grad(p.feats, src32, dwarped.permute(0, 4, 1, 2, 3, 5))
+    return FusedVolumeCotangents(
+        dsrc=dsrc, dcur=dcur, dbase=dacc.sum(1).permute(0, 1, 3, 2).contiguous(),
+        dw_visT=rows(daccc).t() @ rows(vis), dw_metaT=rows(dacc).t() @ rows(meta),
+        dw_plane=rows(dacc * planes[:, None, None, None]).sum(0)[:, None],
+        dw_fc1T=rows(dh2pc).t() @ rows(h1), db_fc1=rows(dh2p).sum(0)[:, None],
+        dw_fc2=rows(F.leaky_relu(h2p, 0.01) * ctx).sum(0)[:, None], db_fc2=ct.sum().reshape(1))
 
 
 class _FusedVolumeTrain(torch.autograd.Function):

@@ -6,10 +6,19 @@ skip without an NVIDIA GPU; chip_smoke.py runs the same comparisons at the
 main path's shapes.
 
 Tolerances: #1 atol 2e-3, rtol 1e-3 (f32 sums in another order; the JAX
-package holds its TPU kernel to the same bound). #2 at a small ragged shape
-atol 5e-3, rtol 5e-3 elementwise (tests/test_fused_volume.py:170-176;
-measured ~1e-6: the shape is small enough that no LeakyReLU pre-activation
-sits within rounding of 0). #3 atol 1e-5, rtol 1e-5 in f32; #4 1e-4 of
+package holds its TPU kernel to the same bound). In bf16 both sides of #1
+and #2 round the same f32 values to bf16 where the JAX kernels round their
+matrix operands; where the two f32 values differ in their last bits (sums
+in another order) they can round one bf16 ulp apart, and a LeakyReLU
+pre-activation near 0 can then take the other slope. So #1 in bf16 meets
+its bound at all but a share of 1e-3 of the points, with a relative L2
+error of at most 1e-3 (chip_smoke.check_volume). #2 is held to
+chip_smoke.check_cotangents, per cotangent: relative L2 error 2e-2 and a
+share of 1e-2 of the per-point elements outside atol 5e-3 + rtol 5e-3
+(f32; tests/test_fused_volume.py:170-176) or 2e-2 + 2e-2 (bf16: five bf16
+ulps); at the small shape, where no pre-activation sits within rounding
+of 0, also elementwise to atol 5e-3, rtol 5e-3 in both dtypes (measured
+~1e-6 in f32, 2.5e-4 in bf16). #3 atol 1e-5, rtol 1e-5 in f32; #4 1e-4 of
 each cotangent's largest value (f32 sums in another order). #5 and #6 are
 held to the JAX package's bounds for its warp kernels against the XLA
 sampler (tests/test_warp_kernel.py): #5 atol 2e-4, rtol 1e-4, #6 atol
@@ -56,7 +65,7 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
         ref = fused_metadata_volume_reference(*ops)
     torch.cuda.synchronize()
     assert fused_metadata_volume.launches == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=2e-3, rtol=1e-3)
+    chip_smoke.check_volume(f"{shape} {dtype}", got, ref, dtype)
 
 
 def test_forward_val_gpu_matches_cpu(cuda):
@@ -82,20 +91,44 @@ def test_forward_val_gpu_matches_cpu(cuda):
                                atol=1e-4, rtol=1e-4)
 
 
-def test_volume_backward_matches_plain_version(cuda):
+VOLUME_BWD_SHAPES = {
+    "small": dict(B=1, K=2, H=8, W=12, D=5),
+    "ragged7": dict(B=2, K=7, H=13, W=37, D=5),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(VOLUME_BWD_SHAPES))
+def test_volume_backward_matches_plain_version(cuda, shape, dtype):
     import chip_smoke
     from implicit_depth_tpu_torch.ops import fused_volume as fvm
 
-    ops = chip_smoke.volume_operands(B=1, K=2, H=8, W=12, D=5, dtype=torch.float32, seed=3)[:14]
-    ct = torch.randn((1, 5, 8, 12), generator=torch.Generator().manual_seed(0)).to(cuda)
+    dims = VOLUME_BWD_SHAPES[shape]
+    ops = chip_smoke.volume_operands(**dims, dtype=dtype, seed=3)[:14]
+    ct = torch.randn((dims["B"], dims["D"], dims["H"], dims["W"]),
+                     generator=torch.Generator().manual_seed(0)).to(cuda)
     before = fvm.fused_metadata_volume_bwd.launches
     got = fvm.fused_metadata_volume_bwd(ct, *ops)
     ref = fvm.fused_metadata_volume_bwd_reference(ct, *ops)
     torch.cuda.synchronize()
     assert fvm.fused_metadata_volume_bwd.launches == before + 1
-    for name in fvm.FusedVolumeCotangents._fields:
-        np.testing.assert_allclose(getattr(got, name).cpu().numpy(), getattr(ref, name).cpu().numpy(),
-                                   atol=5e-3, rtol=5e-3, err_msg=name)
+    chip_smoke.check_cotangents(f"{shape} {dtype}", got, ref, dtype)
+    if shape == "small":
+        for name in fvm.FusedVolumeCotangents._fields:
+            np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                       getattr(ref, name).cpu().numpy(),
+                                       atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+def test_volume_backward_smem_matches_the_library(cuda):
+    """The wrapper's shared-memory budget (checked before a launch) is the
+    kernels' own layout, for both instantiations."""
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+
+    lib = fvm._library("fused_volume_bwd.cu")
+    for k in (1, 2, 3, 7):
+        assert lib.fused_metadata_volume_bwd_smem_bytes(k, 0) == fvm.bwd_smem_bytes(k, torch.float32)
+        assert lib.fused_metadata_volume_bwd_smem_bytes(k, 1) == fvm.bwd_smem_bytes(k, torch.bfloat16)
 
 
 @pytest.mark.parametrize("prior", [False, True], ids=["noprior", "prior"])

@@ -126,17 +126,23 @@ def test_dispatch_takes_plain_path_on_cpu(case):
 
 
 def test_dispatch_bf16_features_on_cpu(case):
-    """bf16 features: the plain version computes in f32 on the bf16 operands."""
+    """bf16 features: the wrapper runs the plain version, which computes in
+    f32 on the bf16 operands and rounds the warped visuals and h1 to bf16
+    before their products, as the JAX kernel does. That moves the volume by
+    bf16 rounding from the all-f32 computation on the same values: bound 1e-2
+    relative L2 (measured 2.3e-3 and 2.7e-3)."""
     with torch.no_grad():
         ops = volume_mlp.fused_operands(case["tnet"].params_dict(),
                                         t(case["cur"], torch.bfloat16), t(case["src"], torch.bfloat16),
                                         *(t(x) for x in case["geo"]),
                                         k=case["cfg"]["k"], c=case["cfg"]["c"], hidden=128)
         got = fused_volume.fused_metadata_volume(*ops)
-        ref = fused_volume.fused_metadata_volume_reference(
-            *(x.float() for x in ops))
+        ref = fused_volume.fused_metadata_volume_reference(*ops)
+        f32 = fused_volume.fused_metadata_volume_reference(*(x.float() for x in ops))
     assert ops[1].dtype == ops[8].dtype == ops[11].dtype == torch.bfloat16
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-6, rtol=1e-6)
+    assert torch.equal(got, ref)
+    assert not torch.equal(got, f32)
+    assert ((got - f32).norm() / f32.norm()).item() <= 1e-2
 
 
 def test_dispatch_rejects_bad_operands(case):
