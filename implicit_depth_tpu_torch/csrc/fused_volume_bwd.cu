@@ -1229,6 +1229,10 @@ extern "C" int fused_metadata_volume_bwd_bf16(FUSED_VOLUME_BWD_ARGS) {
 
 extern "C" long long fused_metadata_volume_bwd_slab_len(int K) { return slab_len(K); }
 
+// Pixels per tile, of which a launch takes at most one block each: the f32
+// kernel (bf16 == 0) or the tensor-core kernel
+extern "C" int fused_metadata_volume_bwd_tile(int bf16) { return bf16 ? tc::P : TP; }
+
 // Dynamic shared memory of one block: the f32 kernel (bf16 == 0) or the
 // tensor-core kernel
 extern "C" long long fused_metadata_volume_bwd_smem_bytes(int K, int bf16) {

@@ -64,6 +64,7 @@ _SIGNATURES = {
         **{name: ([_PTR] * 20 + [ctypes.c_int] * 6 + [_PTR], ctypes.c_int)
            for name in ("fused_metadata_volume_bwd_f32", "fused_metadata_volume_bwd_bf16")},
         "fused_metadata_volume_bwd_slab_len": ([ctypes.c_int], ctypes.c_longlong),
+        "fused_metadata_volume_bwd_tile": ([ctypes.c_int], ctypes.c_int),
         "fused_metadata_volume_bwd_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong)},
 }
 
@@ -124,31 +125,11 @@ def smem_bytes(num_views: int) -> int:
     return 4 * (num_views * (CHANNELS + 6) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN)
 
 
-# pixels per backward tile: the f32 kernel's one thread per pixel, the bf16
-# kernel's 8 warps of 16-row mma tiles
-BWD_TILE = {torch.float32: 64, torch.bfloat16: 128}
-BWD_BF16_VIEWS = 7  # views the bf16 kernel's fixed shared-memory layout holds
-
-
 def bwd_smem_bytes(num_views: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one backward block (csrc/fused_volume_bwd.cu).
-    f32 features: the forward's f32 weights plus the X (tile x F+4) and Y
-    stages. bf16: W1 and W_vis^T as bf16 with rows padded by 8, W_meta and
-    three F-vectors as f32, the tile's stages (bf16 visuals, f32 metadata,
-    sample positions, cotangent), the 8 warps' three column sums, and
-    h1 | dh2p in bf16 sharing their space with the f32 dacc stage; the
-    layout is fixed at compile time for BWD_BF16_VIEWS views (what more
-    views would take is returned for K beyond it)."""
-    k, c, f = num_views, CHANNELS, HIDDEN
-    if dtype == torch.float32:
-        n = max(f, k * c + -(-k * 6 // 8) * 8)
-        ys = n + (4 - n % 8 + 8) % 8
-        return smem_bytes(k) + 4 * BWD_TILE[dtype] * (f + 4 + ys)
-    k = max(k, BWD_BF16_VIEWS)
-    p, ldh, ldv, ldm = BWD_TILE[dtype], f + 8, k * c + 8, 6 * k + 2
-    weights = 2 * f * (ldh + ldv) + 4 * 6 * k * f + 4 * 3 * f
-    stages = 2 * p * ldv + 4 * p * ldm + 8 * p * k + 4 * p + 4 * (p // 16) * 3 * f
-    return weights + stages + max(2 * 2 * p * ldh, 4 * p * (f + 4))
+    """Dynamic shared memory of one backward block for features of `dtype`,
+    as csrc/fused_volume_bwd.cu lays it out (it builds the library)."""
+    return _library("fused_volume_bwd.cu").fused_metadata_volume_bwd_smem_bytes(
+        num_views, int(dtype == torch.bfloat16))
 
 
 def _launch(ops: tuple, dims: tuple) -> Tensor:
@@ -269,14 +250,15 @@ def _launch_bwd(ct: Tensor, ops: tuple, dims: tuple) -> FusedVolumeCotangents:
     if C != CHANNELS or F_ != HIDDEN:
         raise ValueError(f"the kernel is compiled for C={CHANNELS}, F={HIDDEN}; got C={C}, F={F_}")
     cdt = ops[1].dtype
-    if bwd_smem_bytes(K, cdt) > SMEM_LIMIT:
-        raise ValueError(f"K={K} source views need {bwd_smem_bytes(K, cdt)} bytes of shared "
-                         "memory in the backward")
+    lib = _library("fused_volume_bwd.cu")
+    smem = bwd_smem_bytes(K, cdt)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K={K} source views need {smem} bytes of shared memory in the backward")
     cuda_build.check_aligned(ops + (ct,), "fused_metadata_volume_bwd")
     dev = ct.device
-    lib = _library("fused_volume_bwd.cu")
     slab = lib.fused_metadata_volume_bwd_slab_len(K)
-    nslabs = max(1, min(-(-(B * H * W) // BWD_TILE[cdt]), cuda_build.sm_count(dev)))
+    tile = lib.fused_metadata_volume_bwd_tile(int(cdt == torch.bfloat16))
+    nslabs = max(1, min(-(-(B * H * W) // tile), cuda_build.sm_count(dev)))
     f32 = torch.float32
     dbase = torch.zeros((B, H, F_, W), dtype=f32, device=dev)
     dcur = torch.zeros((B, H, W, C), dtype=f32, device=dev)

@@ -11,14 +11,18 @@ and #2 round the same f32 values to bf16 where the JAX kernels round their
 matrix operands; where the two f32 values differ in their last bits (sums
 in another order) they can round one bf16 ulp apart, and a LeakyReLU
 pre-activation near 0 can then take the other slope. So #1 in bf16 meets
-its bound at all but a share of 1e-3 of the points, with a relative L2
-error of at most 1e-3 (chip_smoke.check_volume). #2 is held to
+its bound at all but a share of 2e-3 of the points, with a relative L2
+error of at most 2e-3 (chip_smoke.check_volume, VOL_FWD_BF16_OUTSIDE and
+VOL_FWD_BF16_REL_L2). #2 is held to
 chip_smoke.check_cotangents, per cotangent: relative L2 error 2e-2 and a
 share of 1e-2 of the per-point elements outside atol 5e-3 + rtol 5e-3
 (f32; tests/test_fused_volume.py:170-176) or 2e-2 + 2e-2 (bf16: five bf16
 ulps); at the small shape, where no pre-activation sits within rounding
 of 0, also elementwise to atol 5e-3, rtol 5e-3 in both dtypes (measured
-~1e-6 in f32, 2.5e-4 in bf16). #3 atol 1e-5, rtol 1e-5 in f32; #4 1e-4 of
+~1e-6 in f32, 2.5e-4 in bf16). Its "multitile7" shape has more tiles than
+the card has SMs, so that a block walks several tiles and carries its
+slab and column sums from one to the next, as in a BD train step. #3 atol
+1e-5, rtol 1e-5 in f32; #4 1e-4 of
 each cotangent's largest value (f32 sums in another order). #5 and #6 are
 held to the JAX package's bounds for its warp kernels against the XLA
 sampler (tests/test_warp_kernel.py): #5 atol 2e-4, rtol 1e-4, #6 atol
@@ -94,6 +98,8 @@ def test_forward_val_gpu_matches_cpu(cuda):
 VOLUME_BWD_SHAPES = {
     "small": dict(B=1, K=2, H=8, W=12, D=5),
     "ragged7": dict(B=2, K=7, H=13, W=37, D=5),
+    # 278 tiles of 128 pixels (555 of 64): two or more a block on 132 SMs
+    "multitile7": dict(B=6, K=7, H=61, W=97, D=3),
 }
 
 
@@ -113,6 +119,9 @@ def test_volume_backward_matches_plain_version(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert fvm.fused_metadata_volume_bwd.launches == before + 1
     chip_smoke.check_cotangents(f"{shape} {dtype}", got, ref, dtype)
+    if shape == "multitile7":
+        assert -(-dims["B"] * dims["H"] * dims["W"] // 128) > 2 * torch.cuda.get_device_properties(
+            cuda).multi_processor_count
     if shape == "small":
         for name in fvm.FusedVolumeCotangents._fields:
             np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
@@ -120,15 +129,20 @@ def test_volume_backward_matches_plain_version(cuda, shape, dtype):
                                        atol=5e-3, rtol=5e-3, err_msg=name)
 
 
-def test_volume_backward_smem_matches_the_library(cuda):
-    """The wrapper's shared-memory budget (checked before a launch) is the
-    kernels' own layout, for both instantiations."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_volume_backward_smem_budget_of_the_flagship(cuda, dtype):
+    """Seven source views fit the shared-memory budget of each backward
+    kernel, the f32 CUDA-core one and the bf16 tensor-core one; eight fit
+    neither, and the wrapper refuses them before a launch."""
+    import chip_smoke
     from implicit_depth_tpu_torch.ops import fused_volume as fvm
 
-    lib = fvm._library("fused_volume_bwd.cu")
-    for k in (1, 2, 3, 7):
-        assert lib.fused_metadata_volume_bwd_smem_bytes(k, 0) == fvm.bwd_smem_bytes(k, torch.float32)
-        assert lib.fused_metadata_volume_bwd_smem_bytes(k, 1) == fvm.bwd_smem_bytes(k, torch.bfloat16)
+    assert fvm.bwd_smem_bytes(7, dtype) <= fvm.SMEM_LIMIT < fvm.bwd_smem_bytes(8, dtype)
+    ops = chip_smoke.volume_operands(B=1, K=8, H=8, W=12, D=2, dtype=dtype, seed=3)[:14]
+    before = fvm.fused_metadata_volume_bwd.launches
+    with pytest.raises(ValueError):
+        fvm.fused_metadata_volume_bwd(torch.zeros((1, 2, 8, 12), device=cuda), *ops)
+    assert fvm.fused_metadata_volume_bwd.launches == before
 
 
 @pytest.mark.parametrize("prior", [False, True], ids=["noprior", "prior"])

@@ -117,16 +117,28 @@ def test_backward_rejects_bad_cotangent(case):
         fused_volume.fused_metadata_volume_bwd(torch.zeros(B, D, H, W).double(), *ops[:14])
 
 
-def test_backward_smem_budget_of_the_flagship():
-    """Seven source views fit the shared-memory budget of each backward
-    kernel, the f32 CUDA-core one and the bf16 tensor-core one; eight fit
-    neither. The bf16 kernel keeps its weights as bf16, so it fits a tile of
-    128 pixels where the f32 one stages 64."""
-    for dtype in (torch.float32, torch.bfloat16):
-        budget = fused_volume.bwd_smem_bytes(7, dtype)
-        assert budget <= fused_volume.SMEM_LIMIT < fused_volume.bwd_smem_bytes(8, dtype), dtype
-    assert fused_volume.bwd_smem_bytes(7, torch.bfloat16) == 231424
-    assert fused_volume.BWD_TILE == {torch.float32: 64, torch.bfloat16: 128}
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_backward_by_batch_element_matches_whole_batch(case, dtype):
+    """chip_smoke.py holds kernel #2 at the train step's batch against the
+    plain version run one batch element at a time: that is the whole
+    batch's plain version (weight gradients summed in another order)."""
+    import chip_smoke
+
+    rng = np.random.RandomState(12)
+    g = _geometry(3, K, H, W, D, seed=4)
+    with torch.no_grad():
+        ops = volume_mlp.fused_operands(
+            case["tnet"].params_dict(), t(rng.randn(3, H, W, C)).to(dtype),
+            t(rng.randn(3, K, H, W, C)).to(dtype),
+            *(t(g[x]) for x in ("src_K", "src_T_cur", "cur_invK", "cur_T_src", "planes")),
+            k=K, c=C, hidden=128)[:14]
+    ct = t(rng.randn(3, D, H, W))
+    whole = fused_volume.fused_metadata_volume_bwd_reference(ct, *ops)
+    split = chip_smoke.volume_bwd_reference_by_batch(ct, ops)
+    for name in fused_volume.FusedVolumeCotangents._fields:
+        r = getattr(whole, name)
+        assert getattr(split, name).shape == r.shape, name
+        assert_close(getattr(split, name), r, 1e-5)
 
 
 # ------------------------------------------------------------------ bf16
@@ -135,8 +147,10 @@ def test_backward_smem_budget_of_the_flagship():
 # and h1 in the forward (implicit_depth_tpu/ops/fused_volume.py:207, :239),
 # and vis, h1, dh2p, dacc in the backward (:487, :522, :534, :539). The
 # port's plain versions round at those points. The JAX kernels also build
-# the warp from bilinear-hat x weights cast to bf16 (:180, :464), an artefact
-# of their one-hot MXU gather that the port does not carry over. Through
+# the warp from bilinear-hat x weights cast to bf16 (:180, :464), and round
+# the scatter's operand, the y-hat-weighted cotangent, to bf16 (:580):
+# artefacts of their one-hot MXU gather and scatter that the port (kernel
+# and plain version) does not carry over. Through
 # the LeakyReLU slopes that last rounding moves the gradients by a few
 # percent in relative L2 (a slope flip changes an element by ~100%), so to
 # hold the port's rounding points to the JAX kernel's the tests below give
