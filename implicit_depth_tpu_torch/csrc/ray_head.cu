@@ -13,20 +13,38 @@
 //
 // What bounds it: ~16.5 k multiply-adds per row forward (W1 is 128 x 128) and
 // ~49 k backward, against ~4 bytes of row traffic (fp is read once per ray):
-// compute-bound. Design: one thread per row keeps h (128) in registers; W1
-// (transposed, so that both z2 = W1^T h and dh = W1 dz2 read rows of 128
-// contiguous floats) and the vectors sit in shared memory as f32 and are read
-// as warp-wide broadcasts. The TPU kernel's one-hot selector matmuls and its
-// 64-ray padding only worked around Mosaic's layouts and are gone; the ragged
-// last tile is masked. The backward's blocks own whole rays, so dfp is summed
-// inside the block; the weight gradients go into one f32 slab per block
-// (dW1 through a register-tiled product of the tile's staged h and dz2), and
-// a second kernel sums the slabs in a fixed order, so the sums are the same
-// on every run. f32 math throughout; tensor-core MMAs are later work.
+// compute-bound. The TPU kernel's one-hot selector matmuls and its 64-ray
+// padding only worked around Mosaic's layouts and are gone; the ragged last
+// tile is masked.
+//
+// Numerics. f32 operands: f32 math throughout. bf16 operands: the JAX
+// kernel's chain (its `_CDT` is bf16), f32 arithmetic rounded to bf16 where
+// that kernel rounds: W1, w2, k0d, k0p; d k0d, the sum z, p k0p; the ELU
+// outputs (exp(z) - 1 below 0) and their derivatives (1 or h + 1, from the
+// rounded h); every h2 w2 product; the forward's output; h2 ct, ct w2, dz2;
+// dh and dz; every dz k0d, dz d, dz p product and dd, dp. Products' sums and
+// the weight gradients stay in f32.
+//
+// Forward (both types) and the f32 backward: one thread per row keeps h (128)
+// in registers; W1 (transposed, so that both z2 = W1^T h and dh = W1 dz2 read
+// rows of 128 contiguous floats) and the vectors sit in shared memory as f32
+// and are read as warp-wide broadcasts. The f32 backward's blocks own whole
+// rays, so dfp is summed inside the block; the weight gradients go into one
+// f32 slab per block (dW1 through a register-tiled product of the tile's
+// staged h and dz2), and a second kernel sums the slabs in a fixed order, so
+// the sums are the same on every run.
+//
+// The bf16 backward runs its three 128 x 128 products per row (z2, dh, dW1)
+// on tensor cores (namespace tc below). Between them sit ~15 roundings to
+// bf16 and two exps per (row, unit), which the JAX kernel's function asks
+// for; with 8 warps an SM, that elementwise work, not the products, takes
+// most of its time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -42,6 +60,42 @@ __device__ __forceinline__ void from_float(float x, float* o) { *o = x; }
 __device__ __forceinline__ void from_float(float x, __nv_bfloat16* o) { *o = __float2bfloat16(x); }
 
 __device__ __forceinline__ float elu(float z) { return z > 0.f ? z : expm1f(z); }
+
+// x rounded to bf16 and back
+__device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// the bf16 chain's ELU: exp(z) - 1 in f32 below 0, rounded (the JAX kernel's
+// _elu)
+__device__ __forceinline__ float elu_bf16(float z) { return rnd(z > 0.f ? z : expf(z) - 1.f); }
+
+// a weight as the chain of operand type T uses it: as it is in f32, rounded
+// to bf16 for bf16 operands
+template <typename T>
+__device__ __forceinline__ float weight(float x) {
+  return sizeof(T) == 2 ? rnd(x) : x;
+}
+
+// The same roundings two values at a time, with one packed conversion
+// (cvt.rn.bf16x2.f32): rnd2 returns the pair rounded and back, bf2 the
+// bf16 pair itself (to store); the elu likewise, and its derivative from the
+// rounded h: 1 or h + 1, rounded (the JAX kernel's _delu).
+__device__ __forceinline__ __nv_bfloat162 bf2(float a, float b) {
+  return __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 rnd2(float a, float b) { return __bfloat1622float2(bf2(a, b)); }
+// Its exp is __expf (ex2.approx; a few f32 ulps, against expf's one or two
+// at several times the instructions): either error is far below the bf16
+// ulp the result is rounded to, and it moves a rounding to the other side
+// as rarely.
+__device__ __forceinline__ __nv_bfloat162 elu2_bf16(float a, float b) {
+  return bf2(a > 0.f ? a : __expf(a) - 1.f, b > 0.f ? b : __expf(b) - 1.f);
+}
+__device__ __forceinline__ float2 delu2_bf16(float2 h) {
+  return rnd2(h.x > 0.f ? 1.f : h.x + 1.f, h.y > 0.f ? 1.f : h.y + 1.f);
+}
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // row[f] for the F values at p (16-byte aligned)
 __device__ __forceinline__ void load_row(const float* p, float* row) {
@@ -103,19 +157,21 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// s_w1T[j * F + i] = w1[i * F + j], plus the F-vectors, staged once per block
+// s_w1T[j * F + i] = w1[i * F + j], plus the F-vectors (all but b1 as the
+// chain of operand type T uses them), staged once per block
+template <typename T>
 __device__ void stage_weights(const float* w1, const float* k0d, const float* k0p,
                               const float* b1, const float* w2, float* s_w1T, float* s_k0d,
                               float* s_k0p, float* s_b1, float* s_w2) {
   for (int i = threadIdx.x; i < F * F; i += blockDim.x) {
     const int j = i / F, r = i % F;
-    s_w1T[i] = w1[r * F + j];
+    s_w1T[i] = weight<T>(w1[r * F + j]);
   }
   for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    s_k0d[i] = k0d[i];
-    s_k0p[i] = k0p != nullptr ? k0p[i] : 0.f;
+    s_k0d[i] = weight<T>(k0d[i]);
+    s_k0p[i] = k0p != nullptr ? weight<T>(k0p[i]) : 0.f;
     s_b1[i] = b1[i];
-    s_w2[i] = w2[i];
+    s_w2[i] = weight<T>(w2[i]);
   }
   __syncthreads();
 }
@@ -125,11 +181,20 @@ template <typename T>
 __device__ __forceinline__ void first_layer(const T* fprow, float dv, float pv, bool prior,
                                             const float* s_k0d, const float* s_k0p, float* h) {
   load_row(fprow, h);
+  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) {
-    float z = h[f] + dv * s_k0d[f];
-    if (prior) z += pv * s_k0p[f];
-    h[f] = elu(z);
+    for (int f = 0; f < F; ++f) {
+      float z = rnd(h[f] + rnd(dv * s_k0d[f]));
+      if (prior) z = rnd(z + rnd(pv * s_k0p[f]));
+      h[f] = elu_bf16(z);
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      float z = h[f] + dv * s_k0d[f];
+      if (prior) z += pv * s_k0p[f];
+      h[f] = elu(z);
+    }
   }
 }
 
@@ -150,7 +215,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) ray_head_fwd_kernel(
   float* s_k0p = s_k0d + F;
   float* s_b1 = s_k0p + F;
   float* s_w2 = s_b1 + F;
-  stage_weights(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
+  stage_weights<T>(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
   const bool prior = p != nullptr;
   const float bias2 = b2[0];
   const long long step = (long long)gridDim.x * blockDim.x;
@@ -158,10 +223,19 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) ray_head_fwd_kernel(
     float h[F];
     first_layer(fp + (r / S) * F, to_float(d[r]), prior ? to_float(p[r]) : 0.f, prior, s_k0d,
                 s_k0p, h);
-    float acc = bias2;
+    if constexpr (sizeof(T) == 2) {
+      // pred = bf16(sum_j bf16(h2_j w2_j) + b2): the store rounds
+      float acc = 0.f;
 #pragma unroll 1
-    for (int j = 0; j < F; ++j) acc += s_w2[j] * elu(s_b1[j] + dot_row(s_w1T + j * F, h));
-    from_float(acc, out + r);
+      for (int j = 0; j < F; ++j)
+        acc += rnd(s_w2[j] * elu_bf16(s_b1[j] + dot_row(s_w1T + j * F, h)));
+      from_float(acc + bias2, out + r);
+    } else {
+      float acc = bias2;
+#pragma unroll 1
+      for (int j = 0; j < F; ++j) acc += s_w2[j] * elu(s_b1[j] + dot_row(s_w1T + j * F, h));
+      from_float(acc, out + r);
+    }
   }
 }
 
@@ -216,7 +290,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
   float* s_p = s_d + BWD_THREADS;   // [BWD_THREADS]
   float* Hs = s_p + BWD_THREADS;    // [BWD_THREADS][RS]: h, then dz
   float* Gs = Hs + BWD_THREADS * RS;  // [BWD_THREADS][RS]: dz2
-  stage_weights(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
+  stage_weights<T>(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
 
   const bool prior = p != nullptr;
   const int t = threadIdx.x, lane = t & 31;
@@ -348,6 +422,341 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------- bf16: tensor cores
+//
+// 8 warps walk tiles of TR = 128 rows, each tile floor(128 / S) whole rays
+// (S <= 128), so a ray's dfp sum stays inside the block; rows past the
+// tile's rays are pads with zero inputs and a zero cotangent, which add
+// nothing to any gradient and are not stored. Blocks are persistent, at most
+// one per SM (177,664 bytes of shared memory). Per tile:
+// 1. every warp stages its 16 rows of d, p, ct and of h = bf16(elu z);
+// 2. z2 = h W1 on mma.sync m16n8k16 (bf16 in, f32 accumulation), the warp's
+//    16 rows in two halves of 64 columns; in registers h2, dz2, h2 ct; dz2
+//    and bf16(h2 ct) go to their stages;
+// 3. dh = dz2 W1^T the same way; dz = bf16(bf16(dh) elu'(h)) to its stage,
+//    dd and dp summed across the quad's lanes and stored;
+// 4. dW1 += h^T dz2 (A from the h stage by ldmatrix.trans): warp w owns rows
+//    16w..16w+15 of dW1, whose 64 accumulators stay in registers across all
+//    the block's tiles;
+// 5. dfp per ray, f32 sums of the dz stage; the column sums of db1, dw2,
+//    dk0d, dk0p and db2 in per-thread registers, also across tiles.
+// At the end each block writes dW1 and its vector sums once to its slab.
+// W1 sits in shared memory once, as W1^T [j][i] in bf16: z2 reads it by
+// ldmatrix, dh by ldmatrix.trans. Rows of the bf16 stages are 272 bytes
+// apart, so ldmatrix and the epilogues' 4-byte accesses are conflict-free.
+
+namespace tc {
+
+using namespace tcore;
+
+constexpr int TR = 128;            // rows per tile
+constexpr int WARPS = TR / 16;     // one 16-row mma tile per warp
+constexpr int THREADS = 32 * WARPS;
+constexpr int NT = F / 8;          // n-tiles of 8 across F
+constexpr int KS = F / 16;         // k-slices of 16 across F
+constexpr int LDH = F + 8;         // bf16 row stride of W1^T and the stages
+constexpr int PARTS = THREADS / (F / 2);  // row parts of the column sums
+constexpr size_t STAGE = 2 * (size_t)TR * LDH;  // bytes of one bf16 stage
+// W1^T | h | dz2 | h2 ct | dz | k0d, k0p, b1, w2 (f32) | d, p, ct (f32)
+constexpr size_t OFF_H = STAGE;
+constexpr size_t OFF_DZ2 = 2 * STAGE;
+constexpr size_t OFF_HC = 3 * STAGE;
+constexpr size_t OFF_DZ = 4 * STAGE;
+constexpr size_t OFF_VEC = 5 * STAGE;
+constexpr size_t OFF_ROW = OFF_VEC + 4 * 4 * (size_t)F;
+constexpr size_t SMEM = OFF_ROW + 3 * 4 * (size_t)TR;
+static_assert(F == TR, "W1^T shares the stages' shape");
+static_assert(4 * (size_t)(PARTS * 4 * F + TR) <= STAGE, "the end's sums fit the h stage");
+
+__global__ void __launch_bounds__(THREADS, 1) ray_head_bwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ fp,  // (rays, F)
+    const __nv_bfloat16* __restrict__ d,   // (rays, S)
+    const __nv_bfloat16* __restrict__ p,   // (rays, S) or null
+    const __nv_bfloat16* __restrict__ ct,  // (rays, S) output cotangent
+    const float* __restrict__ k0d, const float* __restrict__ k0p,  // (F,), k0p or null
+    const float* __restrict__ w1,  // (F, F), (in, out)
+    const float* __restrict__ b1, const float* __restrict__ w2,    // (F,)
+    float* __restrict__ dfp,       // (rays, F)
+    float* __restrict__ dd,        // (rays, S)
+    float* __restrict__ dp,        // (rays, S) or null
+    float* __restrict__ slabs,     // (gridDim.x, SLAB)
+    long long nrays, int S) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  __nv_bfloat16* s_w1 = reinterpret_cast<__nv_bfloat16*>(smem_tc);          // [j][i]
+  __nv_bfloat16* s_h = reinterpret_cast<__nv_bfloat16*>(smem_tc + OFF_H);   // [row][i]
+  __nv_bfloat16* s_dz2 = reinterpret_cast<__nv_bfloat16*>(smem_tc + OFF_DZ2);
+  __nv_bfloat16* s_hc = reinterpret_cast<__nv_bfloat16*>(smem_tc + OFF_HC);
+  __nv_bfloat16* s_dz = reinterpret_cast<__nv_bfloat16*>(smem_tc + OFF_DZ);
+  float* s_k0d = reinterpret_cast<float*>(smem_tc + OFF_VEC);
+  float* s_k0p = s_k0d + F;
+  float* s_b1 = s_k0p + F;
+  float* s_w2 = s_b1 + F;
+  float* s_d = reinterpret_cast<float*>(smem_tc + OFF_ROW);
+  float* s_p = s_d + TR;
+  float* s_ct = s_p + TR;
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < F * F; i += THREADS)  // coalesced reads, transposed writes
+    s_w1[(i % F) * LDH + i / F] = __float2bfloat16_rn(w1[i]);
+  for (int i = tid; i < F; i += THREADS) {
+    s_k0d[i] = rnd(k0d[i]);
+    s_k0p[i] = k0p != nullptr ? rnd(k0p[i]) : 0.f;
+    s_b1[i] = b1[i];
+    s_w2[i] = rnd(w2[i]);
+  }
+  __syncthreads();
+
+  const bool prior = p != nullptr;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * warp;  // the warp's first row in the tile
+  const int rays_per_tile = TR / S;
+  const long long ntiles = (nrays + rays_per_tile - 1) / rays_per_tile;
+
+  // per-lane ldmatrix offsets (elements) of the operand patterns
+  const int o_rows = frag_off(LDH, lane, true) + row0 * LDH;  // A: the warp's rows of [row][k]
+  const int o_w1 = frag_off(LDH, lane, false);                // B: W1^T as [n = j][k = i]
+  const int o_w1T = frag_off(LDH, lane, true);                // B: W1^T as [k = j][n = i], .trans
+  const int o_hA = frag_off(LDH, lane, false) + row0;         // A: h^T from [row][i], .trans
+  const int o_zB = frag_off(LDH, lane, true);                 // B: dz2 from [row][j], .trans
+
+  // the h pass: lane's 8 columns (a 16-byte chunk) of rows (lane / 16) + 2k
+  const int chunk = lane & 15;
+  // the column sums: columns 2c, 2c+1 over rows part * TR / PARTS on
+  const int cpair = tid % (F / 2), cpart = tid / (F / 2);
+
+  float gw[NT][4];  // dW1 rows 16 warp + (g, g + 8), columns 8t + 2q (+1)
+#pragma unroll
+  for (int t = 0; t < NT; ++t) gw[t][0] = gw[t][1] = gw[t][2] = gw[t][3] = 0.f;
+  float cs_db1[2] = {0.f, 0.f}, cs_dw2[2] = {0.f, 0.f}, cs_dk0d[2] = {0.f, 0.f},
+        cs_dk0p[2] = {0.f, 0.f}, cs_db2 = 0.f;
+
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long ray0 = tile * rays_per_tile;
+    const int nr = (int)(nrays - ray0 < rays_per_tile ? nrays - ray0 : rays_per_tile);
+    const int nrows = nr * S;
+    const long long rbase = ray0 * S;  // the tile's first row
+
+    // ---- 1. the warp's rows: d, p, ct; h = bf16(elu(bf16(bf16(fp + bf16(d k0d)) + bf16(p k0p))))
+    if (lane < 16) {
+      const int r = row0 + lane;
+      const bool v = r < nrows;
+      s_d[r] = v ? __bfloat162float(d[rbase + r]) : 0.f;
+      s_p[r] = v && prior ? __bfloat162float(p[rbase + r]) : 0.f;
+      s_ct[r] = v ? __bfloat162float(ct[rbase + r]) : 0.f;
+    }
+    __syncwarp();
+    float kd8[8], kp8[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      kd8[e] = s_k0d[8 * chunk + e];
+      kp8[e] = s_k0p[8 * chunk + e];
+    }
+    uint4 fv[8];  // the 8 rows' fp chunks, all loads in flight at once
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = row0 + (lane >> 4) + 2 * k;
+      fv[k] = r < nrows
+                  ? __ldg(reinterpret_cast<const uint4*>(fp + (ray0 + r / S) * F + 8 * chunk))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = row0 + (lane >> 4) + 2 * k;
+      uint4 hv = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nrows) {
+        const __nv_bfloat162* f2 = reinterpret_cast<const __nv_bfloat162*>(&fv[k]);
+        uint32_t* h2 = reinterpret_cast<uint32_t*>(&hv);
+        const float dv = s_d[r], pv = s_p[r];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(f2[e]);
+          const float2 dk = rnd2(dv * kd8[2 * e], dv * kd8[2 * e + 1]);
+          float2 z = rnd2(x.x + dk.x, x.y + dk.y);
+          if (prior) {
+            const float2 pk = rnd2(pv * kp8[2 * e], pv * kp8[2 * e + 1]);
+            z = rnd2(z.x + pk.x, z.y + pk.y);
+          }
+          h2[e] = bits(elu2_bf16(z.x, z.y));
+        }
+      }
+      *reinterpret_cast<uint4*>(s_h + r * LDH + 8 * chunk) = hv;
+    }
+    __syncwarp();
+
+    // ---- 2. z2 = h W1 + b1 on tensor cores; h2 = bf16(elu z2),
+    // dz2 = bf16(bf16(ct w2) elu'(h2)) and bf16(h2 ct) to their stages
+    const float ct0 = s_ct[row0 + g], ct1 = s_ct[row0 + g + 8];
+#pragma unroll 1
+    for (int hh = 0; hh < 2; ++hh) {
+      float acc[NT / 2][4];
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        uint32_t a[4];
+        ldsm4(a, s_h + o_rows + s * 16);
+#pragma unroll
+        for (int t2 = 0; t2 < NT / 4; ++t2) {
+          uint32_t b[4];
+          ldsm4(b, s_w1 + o_w1 + (64 * hh + 16 * t2) * LDH + s * 16);
+          mma(acc[2 * t2], a, b[0], b[1]);
+          mma(acc[2 * t2 + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) {
+        const int j = 64 * hh + 8 * t + 2 * q;
+        const float2 b = *reinterpret_cast<const float2*>(s_b1 + j);
+        const float2 w = *reinterpret_cast<const float2*>(s_w2 + j);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float c = r ? ct1 : ct0;
+          const float2 h2 = __bfloat1622float2(
+              elu2_bf16(acc[t][2 * r] + b.x, acc[t][2 * r + 1] + b.y));
+          const float2 cw = rnd2(c * w.x, c * w.y);
+          const float2 dl = delu2_bf16(h2);
+          const int o = (row0 + g + 8 * r) * LDH + j;
+          *reinterpret_cast<uint32_t*>(s_dz2 + o) = bits(bf2(cw.x * dl.x, cw.y * dl.y));
+          *reinterpret_cast<uint32_t*>(s_hc + o) = bits(bf2(h2.x * c, h2.y * c));
+        }
+      }
+    }
+    __syncwarp();
+
+    // ---- 3. dh = dz2 W1^T on tensor cores; dz = bf16(bf16(dh) elu'(h)) to
+    // its stage; dd = bf16(sum bf16(dz k0d)), dp likewise
+    float ddp[2] = {0.f, 0.f}, dpp[2] = {0.f, 0.f};
+#pragma unroll 1
+    for (int hh = 0; hh < 2; ++hh) {
+      float acc[NT / 2][4];
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        uint32_t a[4];
+        ldsm4(a, s_dz2 + o_rows + s * 16);
+#pragma unroll
+        for (int t2 = 0; t2 < NT / 4; ++t2) {
+          uint32_t b[4];
+          ldsm4_t(b, s_w1 + o_w1T + s * 16 * LDH + 64 * hh + 16 * t2);
+          mma(acc[2 * t2], a, b[0], b[1]);
+          mma(acc[2 * t2 + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) {
+        const int i = 64 * hh + 8 * t + 2 * q;
+        const float2 kd = *reinterpret_cast<const float2*>(s_k0d + i);
+        const float2 kp = *reinterpret_cast<const float2*>(s_k0p + i);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int o = (row0 + g + 8 * r) * LDH + i;
+          const float2 dh = rnd2(acc[t][2 * r], acc[t][2 * r + 1]);
+          const float2 dl =
+              delu2_bf16(__bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_h + o)));
+          const __nv_bfloat162 dzb = bf2(dh.x * dl.x, dh.y * dl.y);
+          const float2 dz = __bfloat1622float2(dzb);
+          const float2 a = rnd2(dz.x * kd.x, dz.y * kd.y);
+          ddp[r] += a.x + a.y;
+          if (prior) {
+            const float2 c = rnd2(dz.x * kp.x, dz.y * kp.y);
+            dpp[r] += c.x + c.y;
+          }
+          *reinterpret_cast<uint32_t*>(s_dz + o) = bits(dzb);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float ddv = quad_sum(ddp[r]), dpv = quad_sum(dpp[r]);
+      const int row = row0 + g + 8 * r;
+      if (q == 0 && row < nrows) {
+        dd[rbase + row] = rnd(ddv);
+        if (prior) dp[rbase + row] = rnd(dpv);
+      }
+    }
+    __syncthreads();  // every warp's h, dz2, h2 ct and dz rows are staged
+
+    // ---- 4. dW1[i][j] += sum_row h[row][i] dz2[row][j], rows i of warp w
+#pragma unroll 1
+    for (int ks = 0; ks < TR / 16; ++ks) {
+      uint32_t a[4];
+      ldsm4_t(a, s_h + o_hA + ks * 16 * LDH);
+#pragma unroll
+      for (int t2 = 0; t2 < NT / 2; ++t2) {
+        uint32_t b[4];
+        ldsm4_t(b, s_dz2 + o_zB + ks * 16 * LDH + 16 * t2);
+        mma(gw[2 * t2], a, b[0], b[1]);
+        mma(gw[2 * t2 + 1], a, b[2], b[3]);
+      }
+    }
+
+    // ---- 5. dfp per ray: the f32 sum of its S rows of dz
+    for (int item = tid; item < nr * F; item += THREADS) {
+      const int ray = item / F, f = item % F;
+      const __nv_bfloat16* col = s_dz + ray * S * LDH + f;
+      float sum = 0.f;
+#pragma unroll 4
+      for (int i = 0; i < S; ++i) sum += __bfloat162float(col[i * LDH]);
+      dfp[(ray0 + ray) * F + f] = sum;
+    }
+    // the column sums, pad rows adding zeros: db1 = sum dz2, dw2 = sum
+    // bf16(h2 ct), dk0d = sum bf16(dz d), dk0p = sum bf16(dz p), db2 = sum ct
+#pragma unroll 4
+    for (int r = cpart * (TR / PARTS); r < (cpart + 1) * (TR / PARTS); ++r) {
+      const int o = r * LDH + 2 * cpair;
+      const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_dz + o));
+      const float2 z2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_dz2 + o));
+      const float2 hc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(s_hc + o));
+      const float2 zd = rnd2(z.x * s_d[r], z.y * s_d[r]);
+      cs_db1[0] += z2.x;
+      cs_db1[1] += z2.y;
+      cs_dw2[0] += hc.x;
+      cs_dw2[1] += hc.y;
+      cs_dk0d[0] += zd.x;
+      cs_dk0d[1] += zd.y;
+      if (prior) {
+        const float2 zp = rnd2(z.x * s_p[r], z.y * s_p[r]);
+        cs_dk0p[0] += zp.x;
+        cs_dk0p[1] += zp.y;
+      }
+    }
+    if (tid < TR) cs_db2 += s_ct[tid];
+    __syncthreads();  // the stages and rows are rewritten by the next tile
+  }
+
+  // dW1 into the block's slab, (in, out) layout
+  float* slab = slabs + (long long)blockIdx.x * SLAB;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int j = 8 * t + 2 * q;
+    *reinterpret_cast<float2*>(slab + (row0 + g) * F + j) = make_float2(gw[t][0], gw[t][1]);
+    *reinterpret_cast<float2*>(slab + (row0 + g + 8) * F + j) = make_float2(gw[t][2], gw[t][3]);
+  }
+  // the vector sums: the row parts combined in a fixed order
+  float* s_red = reinterpret_cast<float*>(s_h);  // [PARTS][4][F] | [TR]
+  float* part = s_red + cpart * 4 * F + 2 * cpair;
+  *reinterpret_cast<float2*>(part) = make_float2(cs_db1[0], cs_db1[1]);
+  *reinterpret_cast<float2*>(part + F) = make_float2(cs_dw2[0], cs_dw2[1]);
+  *reinterpret_cast<float2*>(part + 2 * F) = make_float2(cs_dk0d[0], cs_dk0d[1]);
+  *reinterpret_cast<float2*>(part + 3 * F) = make_float2(cs_dk0p[0], cs_dk0p[1]);
+  if (tid < TR) s_red[PARTS * 4 * F + tid] = cs_db2;
+  __syncthreads();
+  float* vec = slab + F * F;  // db1 | dw2 | dk0d | dk0p | db2
+  for (int i = tid; i < 4 * F; i += THREADS) {
+    float sum = 0.f;
+    for (int pt = 0; pt < PARTS; ++pt) sum += s_red[pt * 4 * F + i];
+    vec[i] = sum;
+  }
+  if (tid == 0) {
+    float sum = 0.f;
+    for (int r = 0; r < TR; ++r) sum += s_red[PARTS * 4 * F + r];
+    vec[4 * F] = sum;
+  }
+}
+
+}  // namespace tc
+
 __global__ void sum_slabs_kernel(const float* __restrict__ slabs, int nslabs, long long len,
                                  float* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -382,16 +791,27 @@ int launch_bwd(const void* fp, const void* d, const void* p, const void* ct, con
                void* dd, void* dp, void* slabs, void* grads, long long nrays, int S, int nslabs,
                void* stream) {
   if (nrays == 0 || nslabs <= 0) return 0;
-  if (S < 1 || S > BWD_THREADS) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ray_head_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)BWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  ray_head_bwd_kernel<T><<<nslabs, BWD_THREADS, BWD_SMEM, s>>>(
-      (const T*)fp, (const T*)d, (const T*)p, (const T*)ct, (const float*)k0d,
-      (const float*)k0p, (const float*)w1, (const float*)b1, (const float*)w2, (float*)dfp,
-      (float*)dd, (float*)dp, (float*)slabs, nrays, S);
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    if (S < 1 || S > tc::TR) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(tc::ray_head_bwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    tc::ray_head_bwd_bf16_kernel<<<nslabs, tc::THREADS, tc::SMEM, s>>>(
+        (const T*)fp, (const T*)d, (const T*)p, (const T*)ct, (const float*)k0d,
+        (const float*)k0p, (const float*)w1, (const float*)b1, (const float*)w2, (float*)dfp,
+        (float*)dd, (float*)dp, (float*)slabs, nrays, S);
+  } else {
+    if (S < 1 || S > BWD_THREADS) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(ray_head_bwd_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ray_head_bwd_kernel<T><<<nslabs, BWD_THREADS, BWD_SMEM, s>>>(
+        (const T*)fp, (const T*)d, (const T*)p, (const T*)ct, (const float*)k0d,
+        (const float*)k0p, (const float*)w1, (const float*)b1, (const float*)w2, (float*)dfp,
+        (float*)dd, (float*)dp, (float*)slabs, nrays, S);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_slabs_kernel<<<(SLAB + 255) / 256, 256, 0, s>>>((const float*)slabs, nslabs, SLAB,
@@ -426,3 +846,18 @@ extern "C" int ray_head_bwd_bf16(RAY_HEAD_BWD_ARGS) {
   return launch_bwd<__nv_bfloat16>(RAY_HEAD_BWD_PASS);
 }
 extern "C" long long ray_head_slab_len() { return SLAB; }
+
+// The backward's launch shape, for bf16 (the tensor-core kernel) or f32
+// operands: threads and dynamic shared memory per block, and the blocks (=
+// slabs) for nrays rays of S samples on sms SMs, -1 where the kernel refuses
+// S (a tile holds 128 rows of whole rays).
+extern "C" int ray_head_bwd_threads(int bf16) { return bf16 ? tc::THREADS : BWD_THREADS; }
+extern "C" long long ray_head_bwd_smem_bytes(int bf16) {
+  return (long long)(bf16 ? tc::SMEM : BWD_SMEM);
+}
+extern "C" long long ray_head_bwd_blocks(long long nrays, int S, int sms, int bf16) {
+  const int rows = bf16 ? tc::TR : BWD_THREADS;
+  if (S < 1 || S > rows) return -1;
+  const long long tiles = (nrays + rows / S - 1) / (rows / S);
+  return tiles < 1 ? 1 : (tiles < sms ? tiles : sms);
+}

@@ -16,13 +16,18 @@ computes once per ray. The kernels are csrc/ray_head.cu; this module holds
 - `ray_head_fwd` / `ray_head_bwd`: dispatch wrappers. A CPU tensor goes to
   the plain version; a CUDA tensor launches the kernel or raises. Each has a
   `launches` count of its kernel launches and nothing else;
-- `ray_head_reference` / `ray_head_bwd_reference`: the plain versions (the
-  backward is autograd of the forward).
+- `ray_head_reference` / `ray_head_bwd_reference`: the plain versions, the
+  backward written out.
 
 Contract: fp (b, N, 128), depths and prior (b, N, S) and the cotangent in
 one dtype, f32 or bf16; k0d, k0p, b1 (128,), w1 (128, 128) in (in, out)
-layout, w2 (128, 1), b2 (1,) in f32. The math is f32 in both versions; the
-output takes fp's dtype. The backward's cotangents are f32.
+layout, w2 (128, 1), b2 (1,) in f32. The output takes fp's dtype; the
+backward's cotangents are f32. In f32 the math is f32 throughout (the JAX
+package's XLA chain). In bf16 both versions compute the JAX kernel's chain
+(implicit_depth_tpu/ops/ray_head.py, `_CDT`): f32 arithmetic rounded to bf16
+at the kernel's rounding points (the operands, W1, w2, k0d, k0p, every
+product of two chain values, the ELU outputs and their derivatives, dz2, dh,
+dz, dd, dp), with the products' sums and every weight gradient in f32.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ Tensor = torch.Tensor
 
 HIDDEN = 128
 FWD_THREADS = 256
-BWD_THREADS = 128  # rows of a backward tile; a tile holds 128 // S whole rays
 
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
@@ -48,6 +52,10 @@ _SIGNATURES = {
     **{name: ([_PTR] * 14 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _PTR], ctypes.c_int)
        for name in ("ray_head_bwd_f32", "ray_head_bwd_bf16")},
     "ray_head_slab_len": ([], ctypes.c_longlong),
+    "ray_head_bwd_threads": ([ctypes.c_int], ctypes.c_int),
+    "ray_head_bwd_smem_bytes": ([ctypes.c_int], ctypes.c_longlong),
+    "ray_head_bwd_blocks": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                            ctypes.c_longlong),
 }
 
 
@@ -128,17 +136,51 @@ def ray_head_fwd(fp: Tensor, depths: Tensor, prior: Optional[Tensor], k0d: Tenso
 ray_head_fwd.launches = 0
 
 
+def _rounding(dtype: torch.dtype):
+    """Rounding to the JAX kernel's compute type at its rounding points: to
+    bf16 for bf16 operands, none in f32."""
+    if dtype == torch.bfloat16:
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
+def _elu(z: Tensor, low: bool) -> Tensor:
+    # bf16: exp(z) - 1 below 0 in f32, as the JAX kernel (ray_head.py:61-64),
+    # with exp correctly rounded through f64: PyTorch's vectorised and scalar
+    # CPU exp differ by an f32 ulp, which path an element takes depends on
+    # how the threads split the tensor, and that ulp decides a bf16 rounding
+    # now and then. f32: the XLA chain's elu.
+    return torch.where(z > 0, z, torch.exp(z.double()).float() - 1.0) if low else F.elu(z)
+
+
+def _delu(h: Tensor, r) -> Tensor:
+    """elu'(z) from h = elu(z): 1 where z > 0, else exp(z) = h + 1."""
+    return r(torch.where(h > 0, 1.0, h + 1.0))
+
+
+def _hidden(fp, depths, prior, k0d, k0p, w1, b1) -> tuple:
+    """(h, h2) of every (ray, sample) row, (b, N, S, 128) f32, for bf16
+    operands rounded where the JAX kernel rounds (ray_head.py:126-139)."""
+    low = fp.dtype == torch.bfloat16
+    r = _rounding(fp.dtype)
+    z = r(fp.float()[:, :, None, :] + r(depths.float()[..., None] * r(k0d.float())))
+    if prior is not None:
+        z = r(z + r(prior.float()[..., None] * r(k0p.float())))
+    h = r(_elu(z, low))
+    return h, r(_elu(h @ r(w1.float()) + b1.float(), low))
+
+
 def ray_head_reference(fp: Tensor, depths: Tensor, prior: Optional[Tensor], k0d: Tensor,
                        k0p: Optional[Tensor], w1: Tensor, b1: Tensor, w2: Tensor,
                        b2: Tensor) -> Tensor:
-    """Plain PyTorch version: the JAX package's XLA chain
-    (BinaryMLPNetwork.factored without the kernel), in f32."""
-    z = fp.float()[:, :, None, :] + depths.float()[..., None] * k0d.float()
-    if prior is not None:
-        z = z + prior.float()[..., None] * k0p.float()
-    h = F.elu(z)
-    h = F.elu(h @ w1.float() + b1.float())
-    return (h @ w2.float() + b2.float())[..., 0].to(fp.dtype)
+    """Plain PyTorch version. f32: the JAX package's XLA chain
+    (BinaryMLPNetwork.factored without the kernel). bf16: the JAX kernel's
+    chain, f32 math rounded to bf16 at the kernel's rounding points."""
+    _, h2 = _hidden(fp, depths, prior, k0d, k0p, w1, b1)
+    if fp.dtype != torch.bfloat16:
+        return (h2 @ w2.float() + b2.float())[..., 0].to(fp.dtype)
+    r = _rounding(fp.dtype)
+    return (r(h2 * r(w2.float()[:, 0])).sum(-1) + b2.float()).to(fp.dtype)
 
 
 def ray_head_bwd(ct: Tensor, fp: Tensor, depths: Tensor, prior: Optional[Tensor], k0d: Tensor,
@@ -152,22 +194,25 @@ def ray_head_bwd(ct: Tensor, fp: Tensor, depths: Tensor, prior: Optional[Tensor]
         return ray_head_bwd_reference(ct, fp, depths, prior, k0d, k0p, w1, b1, w2)
     if fp.device.type != "cuda":
         raise ValueError(f"no ray head for device {fp.device}")
-    if s > BWD_THREADS:
-        raise ValueError(f"the backward kernel takes at most {BWD_THREADS} samples per ray, got {s}")
-    ops = (fp, depths, prior, ct, k0d, k0p, w1, b1, w2)
-    cuda_build.check_aligned(ops, "ray_head_bwd")
     dev = fp.device
     f32 = torch.float32
     lib = cuda_build.load("ray_head.cu", _SIGNATURES)
-    slab = lib.ray_head_slab_len()
+    low = int(fp.dtype == torch.bfloat16)
     nrays = b * n
-    nslabs = max(1, min(-(-nrays // (BWD_THREADS // s)), cuda_build.sm_count(dev)))
+    nslabs = lib.ray_head_bwd_blocks(nrays, s, cuda_build.sm_count(dev), low)
+    if nslabs < 0:
+        raise ValueError(f"the backward kernel takes at most 128 samples per ray, got {s}")
+    if lib.ray_head_bwd_smem_bytes(low) > cuda_build.SMEM_LIMIT:
+        raise ValueError("the backward kernel needs more shared memory than a block may have")
+    ops = (fp, depths, prior, ct, k0d, k0p, w1, b1, w2)
+    cuda_build.check_aligned(ops, "ray_head_bwd")
+    slab = lib.ray_head_slab_len()
     dfp = torch.empty((b, n, HIDDEN), dtype=f32, device=dev)
     dd = torch.empty((b, n, s), dtype=f32, device=dev)
     dp = torch.empty((b, n, s), dtype=f32, device=dev) if prior is not None else None
     slabs = torch.zeros((nslabs, slab), dtype=f32, device=dev)
     grads = torch.empty((slab,), dtype=f32, device=dev)
-    fn = lib.ray_head_bwd_f32 if fp.dtype == f32 else lib.ray_head_bwd_bf16
+    fn = lib.ray_head_bwd_bf16 if low else lib.ray_head_bwd_f32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(*(_ptr(t) for t in ops), dfp.data_ptr(), dd.data_ptr(), _ptr(dp),
@@ -188,29 +233,35 @@ ray_head_bwd.launches = 0
 def ray_head_bwd_reference(ct: Tensor, fp: Tensor, depths: Tensor, prior: Optional[Tensor],
                            k0d: Tensor, k0p: Optional[Tensor], w1: Tensor, b1: Tensor,
                            w2: Tensor) -> RayHeadGrads:
-    """Plain version of the backward: autograd of `ray_head_reference` in f32."""
-    def leaf(t):
-        return None if t is None else t.detach().float().requires_grad_(True)
-
-    fp32, d32, p32, kd, kp, w1_, b1_, w2_ = map(leaf, (fp, depths, prior, k0d, k0p, w1, b1, w2))
-    b2 = torch.zeros((1,), dtype=torch.float32, device=fp.device, requires_grad=True)
-    with torch.enable_grad():
-        out = ray_head_reference(fp32, d32, p32, kd, kp, w1_, b1_, w2_, b2)
-        leaves = [t for t in (fp32, d32, p32, kd, kp, w1_, b1_, w2_, b2) if t is not None]
-        grads = iter(torch.autograd.grad(out, leaves, ct.float()))
-    dfp, dd = next(grads), next(grads)
-    dp = next(grads) if prior is not None else None
-    dk0d = next(grads)
-    dk0p = next(grads) if prior is not None else None
-    dw1, db1, dw2, db2 = grads
-    return RayHeadGrads(dfp, dd, dp, dk0d, dk0p, dw1, db1, dw2, db2)
+    """Plain version of the backward, written out: the VJP of
+    `ray_head_reference`, in bf16 rounded where the JAX kernel's backward
+    rounds (ray_head.py:184-211): dz2 = bf16(bf16(ct w2) elu'(h2)),
+    dh = bf16(dz2 W1^T), dz = bf16(dh elu'(h)), dd = bf16(sum bf16(dz k0d)),
+    and every weight-gradient term bf16(x y) summed in f32."""
+    r = _rounding(fp.dtype)
+    h, h2 = _hidden(fp, depths, prior, k0d, k0p, w1, b1)
+    rows = (0, 1, 2)
+    c = ct.float()[..., None]
+    dz2 = r(r(c * r(w2.float()[:, 0])) * _delu(h2, r))
+    dz = r(r(dz2 @ r(w1.float()).t()) * _delu(h, r))
+    kd = r(k0d.float())
+    dp = dk0p = None
+    if prior is not None:
+        kp = r(k0p.float())
+        dp = r(r(dz * kp).sum(-1))
+        dk0p = r(dz * prior.float()[..., None]).sum(rows)
+    return RayHeadGrads(
+        dfp=dz.sum(2), dd=r(r(dz * kd).sum(-1)), dp=dp,
+        dk0d=r(dz * depths.float()[..., None]).sum(rows), dk0p=dk0p,
+        dw1=h.reshape(-1, HIDDEN).t() @ dz2.reshape(-1, HIDDEN), db1=dz2.sum(rows),
+        dw2=r(h2 * c).sum(rows)[:, None], db2=ct.float().sum().reshape(1))
 
 
 class _RayHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fp, depths, prior, k0d, k0p, w1, b1, w2, b2):
         ctx.save_for_backward(fp, depths, prior, k0d, k0p, w1, b1, w2)
-        with torch.autocast(fp.device.type, enabled=False):  # f32 math, as the kernel's
+        with torch.autocast(fp.device.type, enabled=False):  # the operands decide the dtype
             return ray_head_fwd(fp, depths, prior, k0d, k0p, w1, b1, w2, b2)
 
     @staticmethod

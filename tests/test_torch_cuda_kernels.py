@@ -23,7 +23,13 @@ of 0, also elementwise to atol 5e-3, rtol 5e-3 in both dtypes (measured
 the card has SMs, so that a block walks several tiles and carries its
 slab and column sums from one to the next, as in a BD train step. #3 atol
 1e-5, rtol 1e-5 in f32; #4 1e-4 of
-each cotangent's largest value (f32 sums in another order). #5 and #6 are
+each cotangent's largest value (f32 sums in another order). In bf16 #3 and
+#4 and their plain versions round where the JAX kernel rounds; a straddled
+rounding moves an element by about one bf16 ulp (ELU's derivative is
+continuous), so they are held to chip_smoke.check_ray_bf16: at most 1e-3 of
+the per-row elements outside four bf16 ulps, relative L2 1e-3 per output.
+Its "multitile" shape has more tiles than twice the SMs, so that a block of
+#4 carries dW1 in registers across tiles. #5 and #6 are
 held to the JAX package's bounds for its warp kernels against the XLA
 sampler (tests/test_warp_kernel.py): #5 atol 2e-4, rtol 1e-4, #6 atol
 3e-4, rtol 1e-3. The sample coordinates are the same bits on both sides
@@ -167,6 +173,54 @@ def test_ray_head_kernels_match_plain_versions(cuda, prior):
             continue
         err = (a.reshape(r.shape) - r).abs().max().item()
         assert err <= 1e-4 * r.abs().max().item() + 1e-6, name
+
+
+RAY_BF16_SHAPES = {
+    "ragged": dict(b=2, n=100, s=13),  # 9 rays (117 rows) a tile: 11 pad rows in each
+    # 450 tiles of 2 rays: more than two a block on 132 SMs, so that a block
+    # carries dW1 and its column sums from one tile to the next
+    "multitile": dict(b=3, n=300, s=64),
+}
+
+
+@pytest.mark.parametrize("prior", [False, True], ids=["noprior", "prior"])
+@pytest.mark.parametrize("shape", sorted(RAY_BF16_SHAPES))
+def test_ray_head_bf16_kernels_match_plain_versions(cuda, shape, prior):
+    """bf16: #3 and the tensor-core #4 against the plain versions, which
+    round where the JAX kernel rounds (chip_smoke.check_ray_bf16)."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    dims = RAY_BF16_SHAPES[shape]
+    ops, ct = chip_smoke.ray_inputs(**dims, prior=prior, dtype=torch.bfloat16, seed=5)
+    before = rh.ray_head_fwd.launches, rh.ray_head_bwd.launches
+    with torch.no_grad():
+        out = rh.ray_head_fwd(*ops)
+        ref = rh.ray_head_reference(*ops)
+    gk = rh.ray_head_bwd(ct, *ops[:-1])
+    gr = rh.ray_head_bwd_reference(ct, *ops[:-1])
+    torch.cuda.synchronize()
+    assert (rh.ray_head_fwd.launches, rh.ray_head_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == torch.bfloat16 and (gk.dp is None) == (not prior)
+    if shape == "multitile":
+        assert dims["b"] * dims["n"] // (128 // dims["s"]) > 2 * torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+    chip_smoke.check_ray_bf16(f"{shape} {prior}", chip_smoke.ray_outputs(out, gk),
+                              chip_smoke.ray_outputs(ref, gr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ray_head_backward_refuses_long_rays(cuda, dtype):
+    """A backward tile holds 128 rows of whole rays: S = 129 is refused
+    before a launch."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    ops, ct = chip_smoke.ray_inputs(b=1, n=3, s=129, prior=False, dtype=dtype, seed=5)
+    before = rh.ray_head_bwd.launches
+    with pytest.raises(ValueError):
+        rh.ray_head_bwd(ct, *ops[:-1])
+    assert rh.ray_head_bwd.launches == before
 
 
 WARP_SHAPES = {
