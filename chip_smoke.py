@@ -9,14 +9,17 @@ non-zero:
 2. build:       nvcc builds the four kernel libraries from
                 implicit_depth_tpu_torch/csrc/, one process per source, all at
                 once; the ptxas register and spill report of each, and the
-                count of tensor-core (HMMA) instructions in kernel #2's and
-                in #4's bf16 function, with that function's registers and
-                spills.
-3. kernel:      the fused-volume forward (kernel #1) against its plain
-                PyTorch version, at the flagship shape (B=1, K=7, C=16, H=96,
-                W=128, D=64, F=128) with f32 and bf16 features, and at a
-                ragged shape; errors against the stated tolerances,
-                CUDA-event medians.
+                count of tensor-core (HMMA) instructions in kernel #2's
+                library and in #1's and #4's bf16 functions, with those
+                functions' registers and spills.
+3. kernel:      the fused-volume forward (kernel #1; bf16 on tensor cores,
+                f32 on CUDA cores) against its plain PyTorch version, at the
+                flagship shape (B=1, K=7, C=16, H=96, W=128, D=64, F=128)
+                with f32 and bf16 features, and at a ragged shape; errors
+                against the stated tolerances, CUDA-event medians; then the
+                bf16 kernel at the train step's b=12, where each block walks
+                several work units, against its plain version run one batch
+                element at a time, both timed, with the bound.
 4. kernel-bwd:  the fused-volume backward (kernel #2; bf16 on tensor cores,
                 f32 on CUDA cores) against its plain version (the JAX
                 kernel's backward with its bf16 rounding points), at B=1 of
@@ -200,6 +203,7 @@ def _sass_hmma(lib, function: str = "") -> int:
 
 def phase_build() -> None:
     from implicit_depth_tpu_torch.ops import cuda_build
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
     from implicit_depth_tpu_torch.ops import ray_head as rh
 
     t0 = time.perf_counter()
@@ -216,6 +220,16 @@ def phase_build() -> None:
           "(cuobjdump -sass)", flush=True)
     if hmma == 0:
         raise AssertionError("the volume backward's library holds no tensor-core instruction")
+    fn = "fused_volume_bf16_kernel"
+    hmma = _sass_hmma(libs["fused_volume.cu"], fn)
+    lib = cuda_build.load("fused_volume.cu", fvm._SIGNATURES["fused_volume.cu"])
+    print(f"  fused_volume.cu {fn}: {hmma} HMMA instructions; ptxas "
+          f"{_ptxas_report(libs['fused_volume.cu'].with_suffix('.log').read_text(), fn)}; "
+          f"{lib.fused_metadata_volume_smem_bytes(7, 1)} bytes of shared memory a block, work "
+          f"units of {lib.fused_metadata_volume_tile()} pixels x "
+          f"{lib.fused_metadata_volume_plane_group()} planes", flush=True)
+    if hmma == 0:
+        raise AssertionError("the volume forward's bf16 function holds no tensor-core instruction")
     fn = "ray_head_bwd_bf16_kernel"
     hmma = _sass_hmma(libs["ray_head.cu"], fn)
     lib = cuda_build.load("ray_head.cu", rh._SIGNATURES)
@@ -285,7 +299,51 @@ def phase_kernel() -> dict:
                                  "bound_ms": b_ms, "bound_by": b_by}
             print(line, flush=True)
         del ops
+    result["train bf16"] = _volume_fwd_train_shape()
     return result
+
+
+VOLUME_PER_BATCH = (0, 1, 2, 3, 4, 5, 7)  # cur, src, A, b, origins, invK, base
+
+
+def _batch_element(ops, i: int) -> tuple:
+    """The operands of batch element i (the planes and weights are shared)."""
+    return tuple(x[i:i + 1] if j in VOLUME_PER_BATCH else x for j, x in enumerate(ops))
+
+
+def volume_reference_by_batch(ops):
+    """The plain version of kernel #1 one batch element at a time, in the
+    device memory of one, concatenated."""
+    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume_reference
+
+    return torch.cat([fused_metadata_volume_reference(*_batch_element(ops, i))
+                      for i in range(ops[0].shape[0])])
+
+
+def _volume_fwd_train_shape() -> dict:
+    """Kernel #1 alone at the BD train step's shape (TRAIN_VOLUME, bf16),
+    where a block walks several work units: held against the plain version,
+    run one batch element at a time, with the bf16 bounds; both timed."""
+    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
+
+    shape = TRAIN_VOLUME
+    ops = volume_operands(**shape, dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = fused_metadata_volume(*ops)
+        ref = volume_reference_by_batch(ops)
+        torch.cuda.synchronize()
+        summary = check_volume("train bf16", got, ref, torch.bfloat16)
+        err = (got - ref).abs().max().item()
+        del ref
+        ms = cuda_ms(lambda: fused_metadata_volume(*ops))
+        plain_ms = cuda_ms(lambda: volume_reference_by_batch(ops), runs=3)
+    points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
+    b_ms, b_by = least_ms(nbytes(*ops, got), 2.0 * points * volume_fwd_macs(shape["K"]))
+    print(f"kernel train bf16 {tuple(got.shape)} (B, D, H, W), K={shape['K']}: {summary}; kernel "
+          f"{ms:.3f} ms (median of {TIMED_RUNS}), plain {plain_ms:.3f} ms ({shape['B']} calls of "
+          f"one batch element, median of 3), bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return {"shape": "B=12 K=7 96x128 D=64 bf16", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def least_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) -> tuple:
@@ -402,7 +460,6 @@ def phase_kernel_bwd() -> dict:
     return result
 
 
-VOLUME_PER_BATCH = (0, 1, 2, 3, 4, 5, 7)  # cur, src, A, b, origins, invK, base
 VOLUME_PER_POINT = ("dsrc", "dcur", "dbase")
 
 
@@ -413,9 +470,8 @@ def volume_bwd_reference_by_batch(ct, ops):
     from implicit_depth_tpu_torch.ops.fused_volume import (
         FusedVolumeCotangents, fused_metadata_volume_bwd_reference)
 
-    parts = [fused_metadata_volume_bwd_reference(
-        ct[i:i + 1], *(x[i:i + 1] if j in VOLUME_PER_BATCH else x for j, x in enumerate(ops)))
-        for i in range(ct.shape[0])]
+    parts = [fused_metadata_volume_bwd_reference(ct[i:i + 1], *_batch_element(ops, i))
+             for i in range(ct.shape[0])]
     return FusedVolumeCotangents(*(
         torch.cat(g) if name in VOLUME_PER_POINT else torch.stack(g).sum(0)
         for name, g in zip(FusedVolumeCotangents._fields, zip(*parts))))
@@ -1210,6 +1266,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r.get("library_ms")} for name, source, replaces, r, launches in rows]
+    kernels[0]["train_shape"] = kern["train bf16"]  # #1 at the train step's b=12
     kernels[1]["train_shape"] = kern_bwd["train bf16"]  # #2 at the train step's b=12
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,8 +8,10 @@ _fused_kernel (wrapper `fused_metadata_volume`) and `_fused_bwd_kernel`
 and csrc/fused_volume_bwd.cu; this module holds
 
 - `fused_metadata_volume`: the dispatch wrapper. A CPU tensor goes to the
-  plain version; a CUDA tensor launches the kernel or raises. Its
-  `launches` attribute counts kernel launches, and nothing else.
+  plain version; a CUDA tensor launches the kernel or raises. By the
+  features' dtype it launches the f32 CUDA-core kernel or the bf16
+  tensor-core kernel, both in csrc/fused_volume.cu. Its `launches`
+  attribute counts kernel launches, and nothing else.
 - `fused_metadata_volume_reference`: the plain PyTorch version on the same
   operands, built from the port's warp (volumes/cost_volume.py) and the
   repacked first-layer weights. The CPU tests and chip_smoke.py compare
@@ -58,8 +60,12 @@ SMEM_LIMIT = cuda_build.SMEM_LIMIT
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
     "fused_volume.cu": {
-        name: ([_PTR] * 16 + [ctypes.c_int] * 5 + [_PTR], ctypes.c_int)
-        for name in ("fused_metadata_volume_f32", "fused_metadata_volume_bf16")},
+        **{name: ([_PTR] * 16 + [ctypes.c_int] * 5 + [_PTR], ctypes.c_int)
+           for name in ("fused_metadata_volume_f32", "fused_metadata_volume_bf16")},
+        "fused_metadata_volume_max_views": ([], ctypes.c_int),
+        "fused_metadata_volume_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_longlong),
+        "fused_metadata_volume_tile": ([], ctypes.c_int),
+        "fused_metadata_volume_plane_group": ([], ctypes.c_int)},
     "fused_volume_bwd.cu": {
         **{name: ([_PTR] * 20 + [ctypes.c_int] * 6 + [_PTR], ctypes.c_int)
            for name in ("fused_metadata_volume_bwd_f32", "fused_metadata_volume_bwd_bf16")},
@@ -118,11 +124,11 @@ def _check_operands(cur, src, A, b, origins, invK, planes, base, w_visT, w_metaT
     return B, K, H, W, C, D, F_
 
 
-def smem_bytes(num_views: int) -> int:
-    """Dynamic shared memory of one forward block: f32 fc0 columns for the
-    source visuals and the six metadata rows of every view, fc1, and the
-    three F-vectors."""
-    return 4 * (num_views * (CHANNELS + 6) * HIDDEN + HIDDEN * HIDDEN + 3 * HIDDEN)
+def fwd_smem_bytes(num_views: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one forward block for features of `dtype`,
+    as csrc/fused_volume.cu lays it out (it builds the library)."""
+    return _library("fused_volume.cu").fused_metadata_volume_smem_bytes(
+        num_views, int(dtype == torch.bfloat16))
 
 
 def bwd_smem_bytes(num_views: int, dtype: torch.dtype) -> int:
@@ -136,11 +142,15 @@ def _launch(ops: tuple, dims: tuple) -> Tensor:
     B, K, H, W, C, D, F_ = dims
     if C != CHANNELS or F_ != HIDDEN:
         raise ValueError(f"the kernel is compiled for C={CHANNELS}, F={HIDDEN}; got C={C}, F={F_}")
-    if smem_bytes(K) > SMEM_LIMIT:
-        raise ValueError(f"K={K} source views need {smem_bytes(K)} bytes of shared memory")
+    lib = _library("fused_volume.cu")
+    if K > lib.fused_metadata_volume_max_views():
+        raise ValueError(f"the kernel takes at most {lib.fused_metadata_volume_max_views()} "
+                         f"source views; got K={K}")
+    smem = fwd_smem_bytes(K, ops[1].dtype)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K={K} source views need {smem} bytes of shared memory")
     cuda_build.check_aligned(ops, "fused_metadata_volume")
     out = torch.empty((B, D, H, W), dtype=torch.float32, device=ops[0].device)
-    lib = _library("fused_volume.cu")
     fn = (lib.fused_metadata_volume_f32 if ops[1].dtype == torch.float32
           else lib.fused_metadata_volume_bf16)
     stream = torch.cuda.current_stream(ops[0].device).cuda_stream

@@ -6,7 +6,11 @@ skip without an NVIDIA GPU; chip_smoke.py runs the same comparisons at the
 main path's shapes.
 
 Tolerances: #1 atol 2e-3, rtol 1e-3 (f32 sums in another order; the JAX
-package holds its TPU kernel to the same bound). In bf16 both sides of #1
+package holds its TPU kernel to the same bound). The bf16 #1 runs on the
+tensor cores in work units of (128 pixels, 8 planes); its shapes here cover
+fewer views than its shared-memory layout holds, tiles that cross from one
+image into the next, and more units than twice the SMs, so that a block
+walks several. In bf16 both sides of #1
 and #2 round the same f32 values to bf16 where the JAX kernels round their
 matrix operands; where the two f32 values differ in their last bits (sums
 in another order) they can round one bf16 ulp apart, and a LeakyReLU
@@ -76,6 +80,56 @@ def test_kernel_matches_plain_version(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert fused_metadata_volume.launches == before + 1
     chip_smoke.check_volume(f"{shape} {dtype}", got, ref, dtype)
+
+
+VOLUME_FWD_BF16_SHAPES = {
+    "k3": dict(B=1, K=3, H=40, W=52, D=9),  # fewer views than the layout holds
+    # 481 pixels an image: tiles of 128 cross from one image into the next
+    "ragged7": dict(B=2, K=7, H=13, W=37, D=5),
+    # 139 tiles x 3 plane groups (8, 8, 1) = 417 work units: more than two a
+    # block on 132 SMs; the last tile and the last group are partial
+    "multiunit7": dict(B=3, K=7, H=61, W=97, D=17),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(VOLUME_FWD_BF16_SHAPES))
+def test_volume_forward_bf16_matches_plain_version(cuda, shape):
+    """The tensor-core forward (bf16) against its plain version, held to
+    chip_smoke.check_volume's bf16 bounds."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+
+    dims = VOLUME_FWD_BF16_SHAPES[shape]
+    ops = chip_smoke.volume_operands(**dims, dtype=torch.bfloat16, seed=3)
+    before = fvm.fused_metadata_volume.launches
+    with torch.no_grad():
+        got = fvm.fused_metadata_volume(*ops)
+        ref = fvm.fused_metadata_volume_reference(*ops)
+    torch.cuda.synchronize()
+    assert fvm.fused_metadata_volume.launches == before + 1
+    chip_smoke.check_volume(f"{shape} bf16", got, ref, torch.bfloat16)
+    if shape == "multiunit7":
+        lib = fvm._library("fused_volume.cu")
+        tiles = -(-dims["B"] * dims["H"] * dims["W"] // lib.fused_metadata_volume_tile())
+        units = tiles * -(-dims["D"] // lib.fused_metadata_volume_plane_group())
+        assert units > 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_volume_forward_smem_budget_of_the_flagship(cuda, dtype):
+    """Seven source views fit the shared-memory budget of each forward
+    kernel, the f32 CUDA-core one and the bf16 tensor-core one; eight are
+    more than either takes (the tensor-core layout holds seven, as the
+    backward does), and the wrapper refuses them before a launch."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import fused_volume as fvm
+
+    assert fvm.fwd_smem_bytes(7, dtype) <= fvm.SMEM_LIMIT
+    ops = chip_smoke.volume_operands(B=1, K=8, H=8, W=12, D=2, dtype=dtype, seed=3)
+    before = fvm.fused_metadata_volume.launches
+    with pytest.raises(ValueError), torch.no_grad():
+        fvm.fused_metadata_volume(*ops)
+    assert fvm.fused_metadata_volume.launches == before
 
 
 def test_forward_val_gpu_matches_cpu(cuda):

@@ -172,6 +172,35 @@ def test_lowest_cost_depth():
                  jcv.lowest_cost_depth(jnp.asarray(cost), jnp.asarray(planes)), 0.0)
 
 
-def test_smem_budget_of_the_flagship():
-    """Seven source views fit the kernel's shared-memory budget."""
-    assert fused_volume.smem_bytes(7) <= fused_volume.SMEM_LIMIT < fused_volume.smem_bytes(16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_plain_forward_by_batch_equals_whole_batch(dtype):
+    """chip_smoke.py holds kernel #1 at the train step's batch against the
+    plain version run one batch element at a time: that is the whole
+    batch's plain version. Matrix products over fewer rows may sum in
+    another order: in f32 that moves the volume by ~1e-7 (bound 1e-5 of the
+    largest value); in bf16 the same f32 differences can round h1 one bf16
+    ulp apart (measured: 2 points of 2100 moved, by at most 2.3e-4), so
+    every point is held to the f32 kernel's bound, atol 2e-3 + rtol 1e-3."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.weights import init_params
+
+    b, k, h, w, d = 3, 3, 10, 14, 5
+    rng = np.random.RandomState(13)
+    g = _geometry(b, k, h, w, d, seed=5)
+    gen = torch.Generator().manual_seed(0)
+    mlp = init_params(volume_mlp.MetadataVolumeMLP(k, 16), gen)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        ops = volume_mlp.fused_operands(
+            mlp.params_dict(), t(rng.randn(b, h, w, 16), dtype), t(rng.randn(b, k, h, w, 16), dtype),
+            *(t(g[x]) for x in ("src_K", "src_T_cur", "cur_invK", "cur_T_src", "planes")),
+            k=k, c=16, hidden=128)
+        whole = fused_volume.fused_metadata_volume_reference(*ops)
+        split = chip_smoke.volume_reference_by_batch(ops)
+    assert ops[1].dtype == dtype and whole.shape == (b, d, h, w)
+    if dtype == torch.float32:
+        assert_close(split, whole, 1e-5)
+    else:
+        np.testing.assert_allclose(split.numpy(), whole.numpy(), atol=chip_smoke.ATOL,
+                                   rtol=chip_smoke.RTOL)
