@@ -11,7 +11,10 @@ non-zero:
                 once; the ptxas register and spill report of each, and the
                 count of tensor-core (HMMA) instructions in kernel #2's
                 library and in #1's and #4's bf16 functions, with those
-                functions' registers and spills.
+                functions' registers and spills; for the warp transpose
+                (#6) its registers, spills, shared memory and tile, and the
+                count of global reduction and atomic instructions in its
+                SASS, which must be 0 (a gather).
 3. kernel:      the fused-volume forward (kernel #1; bf16 on tensor cores,
                 f32 on CUDA cores) against its plain PyTorch version, at the
                 flagship shape (B=1, K=7, C=16, H=96, W=128, D=64, F=128)
@@ -55,12 +58,15 @@ non-zero:
                 and parameter gradients against stated bounds.
 9. kernel-warp: the plane-sweep warp (kernel #5) and its transpose (#6)
                 against their plain versions at the eval shape (K'=7, D=64,
-                96x128, C=16; f32 and bf16), the train shape (K'=112, bf16)
-                and a ragged shape (K'=3, D=13, 50x70, f32) whose poses put
-                samples behind the camera and out of frame; max errors
-                against stated bounds, CUDA-event medians of the kernels,
-                the plain versions and the library calls (F.grid_sample and
-                its backward), and the bound.
+                96x128, C=16; f32 and bf16), the train shape (K'=112, bf16),
+                a ragged shape (K'=3, D=13, 50x70, f32) whose poses put
+                samples behind the camera and out of frame, and the eval
+                shape with view 0's camera centre on one output point, so
+                that a sample at z's clamp lands in frame (f32 and bf16);
+                max errors against stated bounds, whether two launches of
+                #6 give identical bits (they must), CUDA-event medians of
+                the kernels, the plain versions and the library calls
+                (F.grid_sample and its backward), and the bound.
 10. reg-main:   the cli/test_reg.py path (eval/depth_eval.py::evaluate_depth)
                 with the flagship regression DepthNet (regression_model.yaml:
                 EfficientNetV2-S, K=7, D=64, bf16, seeded random weights) over
@@ -185,9 +191,10 @@ def _ptxas_report(log: str, function: str) -> str:
     return " | ".join(out)
 
 
-def _sass_hmma(lib, function: str = "") -> int:
-    """HMMA (tensor-core) instructions in a library's SASS, in the functions
-    whose mangled name holds `function`."""
+def _sass_count(lib, function: str = "", opcodes: tuple = ("HMMA",)) -> int:
+    """Instructions of a library's SASS whose opcode (before its first dot)
+    is one of `opcodes`, in the functions whose mangled name holds
+    `function`. By default the HMMA (tensor-core) instructions."""
     from implicit_depth_tpu_torch.ops import cuda_build
 
     sass = subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-sass", str(lib)],
@@ -196,15 +203,26 @@ def _sass_hmma(lib, function: str = "") -> int:
     for ln in sass.splitlines():
         if "Function :" in ln:
             keep = function in ln
-        elif keep and "HMMA" in ln:
+            continue
+        # "/*0090*/  @P0 REDG.E.ADD.F32 [R2.64], R5 ;  /* 0x... */"
+        words = ln.split("*/", 1)[1].split("/*")[0].split() if keep and "*/" in ln else []
+        if words and words[0].startswith("@"):  # a predicate
+            words = words[1:]
+        if words and words[0].split(".")[0] in opcodes:
             count += 1
     return count
+
+
+# global reductions and atomics in SASS (REDG / ATOMG on sm_90; RED / ATOM are
+# the generic-address forms)
+GLOBAL_ATOMICS = ("RED", "REDG", "ATOM", "ATOMG")
 
 
 def phase_build() -> None:
     from implicit_depth_tpu_torch.ops import cuda_build
     from implicit_depth_tpu_torch.ops import fused_volume as fvm
     from implicit_depth_tpu_torch.ops import ray_head as rh
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
 
     t0 = time.perf_counter()
     libs = cuda_build.build()
@@ -215,13 +233,13 @@ def phase_build() -> None:
         ptxas = " | ".join(ln.strip().replace("ptxas info    : ", "") for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln)
         print(f"  {source} -> {lib.name}: {ptxas}", flush=True)
-    hmma = _sass_hmma(libs["fused_volume_bwd.cu"])
+    hmma = _sass_count(libs["fused_volume_bwd.cu"])
     print(f"  fused_volume_bwd.cu: {hmma} HMMA (tensor-core) instructions in its SASS "
           "(cuobjdump -sass)", flush=True)
     if hmma == 0:
         raise AssertionError("the volume backward's library holds no tensor-core instruction")
     fn = "fused_volume_bf16_kernel"
-    hmma = _sass_hmma(libs["fused_volume.cu"], fn)
+    hmma = _sass_count(libs["fused_volume.cu"], fn)
     lib = cuda_build.load("fused_volume.cu", fvm._SIGNATURES["fused_volume.cu"])
     print(f"  fused_volume.cu {fn}: {hmma} HMMA instructions; ptxas "
           f"{_ptxas_report(libs['fused_volume.cu'].with_suffix('.log').read_text(), fn)}; "
@@ -231,7 +249,7 @@ def phase_build() -> None:
     if hmma == 0:
         raise AssertionError("the volume forward's bf16 function holds no tensor-core instruction")
     fn = "ray_head_bwd_bf16_kernel"
-    hmma = _sass_hmma(libs["ray_head.cu"], fn)
+    hmma = _sass_count(libs["ray_head.cu"], fn)
     lib = cuda_build.load("ray_head.cu", rh._SIGNATURES)
     print(f"  ray_head.cu {fn}: {hmma} HMMA instructions; ptxas "
           f"{_ptxas_report(libs['ray_head.cu'].with_suffix('.log').read_text(), fn)}; "
@@ -240,6 +258,18 @@ def phase_build() -> None:
     if hmma == 0:
         raise AssertionError("the ray-head backward's bf16 function holds no tensor-core "
                              "instruction")
+    fn = "warp_planes_bwd_kernel"
+    atomics = _sass_count(libs["warp_planes.cu"], fn, GLOBAL_ATOMICS)
+    lib = cuda_build.load("warp_planes.cu", wk._SIGNATURES)
+    log = libs["warp_planes.cu"].with_suffix(".log").read_text()
+    print(f"  warp_planes.cu {fn}: ptxas bf16 {_ptxas_report(log, fn + 'I13__nv_bfloat16')}, "
+          f"f32 {_ptxas_report(log, fn + 'If')}; "
+          f"{lib.warp_planes_bwd_smem_bytes(1)} / {lib.warp_planes_bwd_smem_bytes(0)} bytes of "
+          f"shared memory a block (bf16 / f32), tiles of {lib.warp_planes_bwd_tile_width()}x"
+          f"{lib.warp_planes_bwd_tile_height()} texels; {atomics} global reduction or atomic "
+          f"instructions ({'/'.join(GLOBAL_ATOMICS)}) in its SASS", flush=True)
+    if atomics:
+        raise AssertionError("the warp transpose (a gather) holds global atomics")
 
 
 def volume_operands(B: int, K: int, H: int, W: int, D: int, dtype, seed: int = 0) -> tuple:
@@ -900,13 +930,14 @@ def phase_train_model() -> None:
 WARP_EVAL = dict(K=7, H=96, W=128, D=64)     # one frame of the eval path: b=1 x 7 views
 WARP_TRAIN = dict(K=112, H=96, W=128, D=64)  # a train step at b=16: 16 x 7 views
 WARP_RAGGED = dict(K=3, H=50, W=70, D=13)
+WARP_AT_CENTRE = (40, 30, 32)  # (u0, v0, d0): view 0's camera centre on this output point
 # #5 and #6 vs plain, (atol, rtol): the JAX package's bounds for its warp
 # kernels against the XLA sampler (tests/test_warp_kernel.py). The sample
 # coordinates are the same bits on both sides; the bilinear blend rounds in
-# another order, and #6's float atomics add a source pixel's contributions in
-# an order that changes from run to run. In bf16 one bf16 ulp (at most 2^-7
-# of the value) on top: both round one f32 value to bf16 and may straddle a
-# rounding boundary.
+# another order, and #6 adds a source texel's contributions in another
+# (fixed) order than the plain version's autograd: chunk by chunk of planes,
+# then by cell, then by pixel. In bf16 one bf16 ulp (at most 2^-7 of the value) on top:
+# both round one f32 value to bf16 and may straddle a rounding boundary.
 BF16_ULP = 2.0 ** -7
 WARP_TOL = {torch.float32: ((2e-4, 1e-4), (3e-4, 1e-3)),
             torch.bfloat16: ((2e-4, 1e-4 + BF16_ULP), (3e-4, 1e-3 + BF16_ULP))}
@@ -923,13 +954,18 @@ def _rot(axis: int, angle: float) -> np.ndarray:
 
 
 def warp_operands(K: int, H: int, W: int, D: int, dtype, seed: int = 0, device="cuda",
-                  extreme: bool = False) -> tuple:
+                  extreme: bool = False, at_centre: tuple | None = None) -> tuple:
     """Seeded operands of the warp: source features (K', H, W, 16), the
     homography components A (K', 3, 3), b (K', 3) of views at small random
     rotations and translations around the current one (intrinsics at
     matching resolution), log-spaced planes 0.25-5 m. `extreme` turns every
     other view by ~70 degrees and pushes it back, so that some samples fall
-    behind the camera and many out of frame."""
+    behind the camera and many out of frame. `at_centre` = (u0, v0, d0)
+    puts view 0's camera centre on the ray of output pixel (u0, v0) at plane
+    d0: t = -R X with X = planes[d0] K^-1 (u0 + .5, v0 + .5, 1), so
+    b = K t = -planes[d0] A (u0 + .5, v0 + .5, 1), evaluated in f32 in the
+    kernels' order so that r is exactly 0 there: z sits at its clamp and the
+    sample lands at x = y = -0.5, in frame (its tap (1, 1) is texel (0, 0))."""
     from implicit_depth_tpu_torch.core import geometry
 
     rng = np.random.RandomState(seed)
@@ -948,21 +984,25 @@ def warp_operands(K: int, H: int, W: int, D: int, dtype, seed: int = 0, device="
     gen = torch.Generator().manual_seed(seed)
     src = torch.randn((K, H, W, 16), generator=gen).to(device, dtype)
     planes = geometry.log_depth_planes(0.25, 5.0, D, device=device)
+    if at_centre is not None:
+        u0, v0, d0 = at_centre
+        dep, uu, vv = planes[d0].cpu().numpy(), np.float32(u0 + 0.5), np.float32(v0 + 0.5)
+        for i in range(3):
+            p = (A[0, i, 0] * uu + A[0, i, 1] * vv) + A[0, i, 2]  # f32, as sample_coords
+            b[0, i] = -(dep * p)
     return src, torch.tensor(A, device=device), torch.tensor(b, device=device), planes
 
 
 def _frame_shares(A, b, planes, H: int, W: int) -> tuple:
     """Shares of the sample points behind the camera (z at its clamp) and
-    wholly out of frame (no tap inside the image)."""
-    from implicit_depth_tpu_torch.core import geometry
+    wholly out of frame (no tap inside the image), and the count of clamped
+    samples with a tap inside the image."""
     from implicit_depth_tpu_torch.ops import warp_kernel as wk
 
-    x, y = wk.sample_coords(A, b, planes, H, W)
-    r2 = planes[None, :, None, None] * torch.einsum(
-        "kj,hwj->khw", A[:, 2], geometry.pixel_grid(H, W, device=A.device))[:, None]
-    behind = (r2 + b[:, 2, None, None, None] <= 1e-5).float().mean().item()
-    outside = ((x <= -1) | (x >= W) | (y <= -1) | (y >= H)).float().mean().item()
-    return behind, outside
+    x, y, clamped = wk.sample_points(A, b, planes, H, W)
+    outside = (x <= -1) | (x >= W) | (y <= -1) | (y >= H)
+    return (clamped.float().mean().item(), outside.float().mean().item(),
+            int((clamped & ~outside).sum()))
 
 
 def _in_chunks(fn, K: int, chunk: int):
@@ -985,12 +1025,15 @@ def phase_kernel_warp() -> dict:
     from implicit_depth_tpu_torch.ops import warp_kernel as wk
 
     result = {}
-    for label, shape, dtype, extreme in (("eval f32", WARP_EVAL, torch.float32, False),
-                                         ("eval bf16", WARP_EVAL, torch.bfloat16, False),
-                                         ("train bf16", WARP_TRAIN, torch.bfloat16, False),
-                                         ("ragged f32", WARP_RAGGED, torch.float32, True)):
+    at_centre = {"at_centre": WARP_AT_CENTRE}
+    for label, shape, dtype, geo in (("eval f32", WARP_EVAL, torch.float32, {}),
+                                     ("eval bf16", WARP_EVAL, torch.bfloat16, {}),
+                                     ("train bf16", WARP_TRAIN, torch.bfloat16, {}),
+                                     ("ragged f32", WARP_RAGGED, torch.float32, {"extreme": True}),
+                                     ("at-centre f32", WARP_EVAL, torch.float32, at_centre),
+                                     ("at-centre bf16", WARP_EVAL, torch.bfloat16, at_centre)):
         K, H, W, D = (shape[x] for x in "KHWD")
-        src, A, b, planes = warp_operands(**shape, dtype=dtype, seed=1, extreme=extreme)
+        src, A, b, planes = warp_operands(**shape, dtype=dtype, seed=1, **geo)
         gen = torch.Generator(device="cuda").manual_seed(2)
         ct = torch.randn((K, D, H, W, 16), generator=gen, device="cuda").to(dtype)
 
@@ -1006,13 +1049,19 @@ def phase_kernel_warp() -> dict:
             f_err = _warp_check(f"{label} forward", out, _in_chunks(ref_fwd, K, WARP_CHUNK), fa, fr)
         g = wk.warp_planes_bwd(ct, A, b, planes)
         b_err = _warp_check(f"{label} transpose", g, _in_chunks(ref_bwd, K, WARP_CHUNK), ba, br)
+        same_bits = torch.equal(g, wk.warp_planes_bwd(ct, A, b, planes))
         torch.cuda.synchronize()
-        behind, outside = _frame_shares(A, b, planes, H, W)
+        behind, outside, clamped_in = _frame_shares(A, b, planes, H, W)
         line = (f"kernel-warp {label} K'={K} D={D} {H}x{W} ({behind:.1%} of the samples behind the "
-                f"camera, {outside:.1%} out of frame): forward max_abs_err {f_err:.3e} "
-                f"(bound {fa} + {fr:.4g}*|ref|), transpose max_abs_err {b_err:.3e} (bound {ba} + "
-                f"{br:.4g}*|ref|)")
-        if dtype == torch.bfloat16:
+                f"camera, {outside:.1%} out of frame, {clamped_in} clamped in frame): forward "
+                f"max_abs_err {f_err:.3e} (bound {fa} + {fr:.4g}*|ref|), transpose max_abs_err "
+                f"{b_err:.3e} (bound {ba} + {br:.4g}*|ref|), two transposes give "
+                f"{'identical' if same_bits else 'different'} bits")
+        if not same_bits:
+            raise AssertionError(f"kernel-warp {label}: two launches of the transpose differ")
+        if geo.get("at_centre") and clamped_in == 0:
+            raise AssertionError(f"kernel-warp {label}: no clamped sample lands in frame")
+        if dtype == torch.bfloat16 and not geo:  # timed at the eval and train shapes
             line += _warp_timings(label, result, src, A, b, planes, ct, out, g, ref_fwd, ref_bwd)
             result[label]["fwd"]["max_abs_err"] = f_err
             result[label]["bwd"]["max_abs_err"] = b_err
@@ -1188,8 +1237,7 @@ def phase_reg_train() -> dict:
 def phase_reg_train_model() -> None:
     """One f32 regression step, GPU against CPU, held to the BD step's
     bounds (MODEL_*): the same causes of spread (f32 sums in other orders,
-    LeakyReLU slope ties in the volume MLP, ~60 layers of backward) plus the
-    transpose's atomics, whose order varies from run to run."""
+    LeakyReLU slope ties in the volume MLP, ~60 layers of backward)."""
     import copy
 
     from implicit_depth_tpu_torch.train import state

@@ -15,6 +15,10 @@ csrc/warp_planes.cu; this module holds
 - `warp_planes_bwd` and `warp_planes_bwd_reference`: the transpose's
   wrapper (with its own `launches`) and plain version (autograd of the
   plain forward w.r.t. the source, accumulated in f32).
+- `sample_points` / `sample_coords`: the kernels' sample coordinates, bit
+  for bit; `candidate_boxes`: the mirror of the transpose kernel's rule
+  for which output pixels may reach a source tile (a gather needs it; the
+  CPU tests hold it to every tap).
 - `warp_planes_diff`: a `torch.autograd.Function` whose forward is
   `warp_planes` and whose backward is `warp_planes_bwd`. The gradient goes
   to the source features only; the geometry gets None, as in the JAX
@@ -35,7 +39,10 @@ Libraries are built by ops/cuda_build.py at the first CUDA call.
 from __future__ import annotations
 
 import ctypes
+import itertools
+import math
 
+import numpy as np
 import torch
 
 from implicit_depth_tpu_torch.core.sampling import sample_bilinear_idx
@@ -45,12 +52,18 @@ Tensor = torch.Tensor
 
 CHANNELS = 16  # channels the kernels are compiled for
 
+# the transpose's tile (texels wide, high), as the library's
+# warp_planes_bwd_tile_width / _height give it (a card test holds the two equal)
+BWD_TILE = (16, 16)
+
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
     **{name: ([_PTR] * 5 + [ctypes.c_int] * 5 + [_PTR], ctypes.c_int)
-       for name in ("warp_planes_f32", "warp_planes_bf16")},
-    **{name: ([_PTR] * 6 + [ctypes.c_int] * 5 + [_PTR], ctypes.c_int)
-       for name in ("warp_planes_bwd_f32", "warp_planes_bwd_bf16")},
+       for name in ("warp_planes_f32", "warp_planes_bf16", "warp_planes_bwd_f32",
+                    "warp_planes_bwd_bf16")},
+    "warp_planes_bwd_tile_width": ([], ctypes.c_int),
+    "warp_planes_bwd_tile_height": ([], ctypes.c_int),
+    "warp_planes_bwd_smem_bytes": ([ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -110,12 +123,13 @@ def warp_planes(src: Tensor, A: Tensor, b: Tensor, planes: Tensor) -> Tensor:
 warp_planes.launches = 0
 
 
-def sample_coords(A: Tensor, b: Tensor, planes: Tensor, H: int, W: int) -> tuple:
+def sample_points(A: Tensor, b: Tensor, planes: Tensor, H: int, W: int) -> tuple:
     """Index-space sample coordinates (x, y), each (K', D, H, W) f32, of
-    every output point. One rounding per operation, in the kernels' order
-    (they avoid FMA contraction for this), so the coordinates are the
-    kernels' bit for bit: p = (a0 u + a1 v) + a2 per row of A at the pixel
-    centre (u, v), r = plane p + b, z = max(r2, 1e-5)."""
+    every output point, and where z sits at its clamp (r2 <= 1e-5). One
+    rounding per operation, in the kernels' order (they avoid FMA
+    contraction for this), so the coordinates are the kernels' bit for bit:
+    p = (a0 u + a1 v) + a2 per row of A at the pixel centre (u, v),
+    r = plane p + b, z = max(r2, 1e-5)."""
     u = torch.arange(W, dtype=torch.float32, device=A.device) + 0.5
     v = torch.arange(H, dtype=torch.float32, device=A.device) + 0.5
 
@@ -124,10 +138,104 @@ def sample_coords(A: Tensor, b: Tensor, planes: Tensor, H: int, W: int) -> tuple
              + A[:, i, 2, None, None])                                          # (K', H, W)
         return planes[None, :, None, None] * p[:, None] + b[:, i, None, None, None]
 
-    z = torch.clamp(row(2), min=1e-5)
+    r2 = row(2)
+    z = torch.clamp(r2, min=1e-5)
     x = torch.clamp(row(0) / z - 0.5, -2.0 * W, 2.0 * W)
     y = torch.clamp(row(1) / z - 0.5, -2.0 * H, 2.0 * H)
-    return x, y
+    return x, y, ~(r2 > 1e-5)
+
+
+def sample_coords(A: Tensor, b: Tensor, planes: Tensor, H: int, W: int) -> tuple:
+    """(x, y) of `sample_points`."""
+    return sample_points(A, b, planes, H, W)[:2]
+
+
+F32_CLAMP = float(np.float32(1e-5))  # z's clamp as the kernels hold it (f32)
+
+
+def _clip_polygon(pts: list, h: tuple) -> list:
+    """The polygon pts clipped by a u + b v + c >= 0 (Sutherland-Hodgman)."""
+    a, b, c = h
+    out = []
+    for i, (xi, yi) in enumerate(pts):
+        xj, yj = pts[(i + 1) % len(pts)]
+        si, sj = a * xi + b * yi + c, a * xj + b * yj + c
+        if si >= 0.0:
+            out.append((xi, yi))
+        if (si >= 0.0) != (sj >= 0.0):
+            t = si / (si - sj)
+            out.append((xi + t * (xj - xi), yi + t * (yj - yi)))
+    return out
+
+
+def _half_planes(R: list, e: list, lo: list, hi: list, clamped: bool) -> list:
+    """The five half-planes (a, b, c): a u + b v + c >= 0 of one case, r_i =
+    R[i] . (u, v, 1): r2 > 1e-5 and lo r2 <= r_j <= hi r2, or r2 <= 1e-5 and
+    lo z <= r_j <= hi z at the clamp z; each loosened by the rounding bounds e."""
+    r2 = R[2]
+    if clamped:
+        hp = [(-r2[0], -r2[1], F32_CLAMP + e[2] - r2[2])]
+    else:
+        hp = [(r2[0], r2[1], r2[2] - F32_CLAMP + e[2])]
+    for j in range(2):
+        rj = R[j]
+        if clamped:
+            hp.append((rj[0], rj[1], rj[2] - lo[j] * F32_CLAMP + e[j]))
+            hp.append((-rj[0], -rj[1], hi[j] * F32_CLAMP - rj[2] + e[j]))
+        else:
+            hp.append((rj[0] - lo[j] * r2[0], rj[1] - lo[j] * r2[1],
+                       rj[2] - lo[j] * r2[2] + e[j] + abs(lo[j]) * e[2]))
+            hp.append((hi[j] * r2[0] - rj[0], hi[j] * r2[1] - rj[1],
+                       hi[j] * r2[2] - rj[2] + e[j] + abs(hi[j]) * e[2]))
+    return hp
+
+
+def _pixel_box(poly: list, H: int, W: int) -> tuple:
+    """(u0, u1, v0, v1) of the pixels inside the polygon's bounding box,
+    (1, 0, 1, 0) when none."""
+    if not poly:
+        return (1, 0, 1, 0)
+    us, vs = [p[0] for p in poly], [p[1] for p in poly]
+    u0, u1 = max(0, math.ceil(min(us) - 1e-6)), min(W - 1, math.floor(max(us) + 1e-6))
+    v0, v1 = max(0, math.ceil(min(vs) - 1e-6)), min(H - 1, math.floor(max(vs) + 1e-6))
+    return (u0, u1, v0, v1) if u0 <= u1 and v0 <= v1 else (1, 0, 1, 0)
+
+
+def candidate_boxes(A: Tensor, b: Tensor, planes: Tensor, H: int, W: int,
+                    tile: tuple = BWD_TILE) -> np.ndarray:
+    """Mirror of the transpose kernel's candidate boxes (warp_planes.cu,
+    bwd::candidate_boxes), in f64: for every view, plane and tile of
+    tile[0] x tile[1] texels, (u0, u1, v0, v1) of the pixels that may reach
+    the tile, [..., 0] with r2 > 1e-5 and [..., 1] with z at its clamp;
+    (1, 0, 1, 0) when empty. Returns (K', D, tiles_y, tiles_x, 2, 4) int.
+
+    A tap reaches the tile iff x in [tx0 - 1, tx1 + 1), i.e. r0 / z in
+    [tx0 - .5, tx1 + 1.5), and likewise y. r is affine in (u, v), so each
+    bound is a half-plane (`_half_planes`), loosened by e_i, a bound on the
+    forward's f32 rounding of r_i over the image, and the tile by eps, its
+    rounding of the divide. The box is the bounding box of the image
+    rectangle clipped by the five half-planes of the case."""
+    tw, th = tile
+    nty, ntx = -(-H // th), -(-W // tw)
+    boxes = np.zeros((A.shape[0], planes.shape[0], nty, ntx, 2, 4), np.int64)
+    eps = 0.01 + (W + H) * 2.0 ** -20
+    rect = [(0.0, 0.0), (W - 1.0, 0.0), (W - 1.0, H - 1.0), (0.0, H - 1.0)]
+    for k, (a, bk) in enumerate(zip(A.double().tolist(), b.double().tolist())):
+        for d, dep in enumerate(planes.double().tolist()):
+            R = [(dep * a[i][0], dep * a[i][1],
+                  dep * (0.5 * a[i][0] + 0.5 * a[i][1] + a[i][2]) + bk[i]) for i in range(3)]
+            e = [2.0 ** -22 * (2.0 * abs(dep) * (abs(a[i][0]) * W + abs(a[i][1]) * H
+                                                 + abs(a[i][2])) + abs(bk[i])) for i in range(3)]
+            for ty, tx, clamped in itertools.product(range(nty), range(ntx), (False, True)):
+                t0 = (tx * tw, ty * th)
+                t1 = (min(t0[0] + tw, W) - 1, min(t0[1] + th, H) - 1)
+                lo = [t0[j] - 0.5 - eps for j in range(2)]
+                hi = [t1[j] + 1.5 + eps for j in range(2)]
+                poly = rect
+                for h in _half_planes(R, e, lo, hi, clamped):
+                    poly = _clip_polygon(poly, h) if poly else poly
+                boxes[k, d, ty, tx, int(clamped)] = _pixel_box(poly, H, W)
+    return boxes
 
 
 def warp_planes_reference(src: Tensor, A: Tensor, b: Tensor, planes: Tensor) -> Tensor:
@@ -140,21 +248,22 @@ def warp_planes_reference(src: Tensor, A: Tensor, b: Tensor, planes: Tensor) -> 
 
 def warp_planes_bwd(ct: Tensor, A: Tensor, b: Tensor, planes: Tensor) -> Tensor:
     """d(warp_planes)/d(src) applied to the cotangent ct (K', D, H, W, C):
-    (K', H, W, C) in ct's dtype, summed in f32. CUDA tensors run the kernel;
-    CPU tensors run `warp_planes_bwd_reference`."""
+    (K', H, W, C) in ct's dtype, summed in f32. CUDA tensors run the kernel
+    (a gather: each source texel summed by one block in a fixed order, so
+    two launches give the same bits); CPU tensors run
+    `warp_planes_bwd_reference`."""
     K, H, W, C, D = _check(ct, A, b, planes, rank=5)
     if ct.device.type == "cpu":
         return warp_planes_bwd_reference(ct, A, b, planes)
     _kernel_ready(ct, C, "warp_planes_bwd")
     cuda_build.check_aligned((ct, A, b, planes), "warp_planes_bwd")
-    acc = torch.empty((K, H, W, C), dtype=torch.float32, device=ct.device)
-    out = acc if ct.dtype == torch.float32 else torch.empty_like(acc, dtype=ct.dtype)
+    out = torch.empty((K, H, W, C), dtype=ct.dtype, device=ct.device)
     lib = cuda_build.load("warp_planes.cu", _SIGNATURES)
     fn = lib.warp_planes_bwd_f32 if ct.dtype == torch.float32 else lib.warp_planes_bwd_bf16
     stream = torch.cuda.current_stream(ct.device).cuda_stream
     with torch.cuda.device(ct.device):
-        err = fn(ct.data_ptr(), A.data_ptr(), b.data_ptr(), planes.data_ptr(), acc.data_ptr(),
-                 out.data_ptr(), K, H, W, C, D, stream)
+        err = fn(ct.data_ptr(), A.data_ptr(), b.data_ptr(), planes.data_ptr(), out.data_ptr(),
+                 K, H, W, C, D, stream)
     cuda_build.check(err, "warp_planes_bwd")
     warp_planes_bwd.launches += 1
     return out

@@ -38,10 +38,14 @@ held to the JAX package's bounds for its warp kernels against the XLA
 sampler (tests/test_warp_kernel.py): #5 atol 2e-4, rtol 1e-4, #6 atol
 3e-4, rtol 1e-3. The sample coordinates are the same bits on both sides
 (the kernels round them step by step, as the plain version does); the
-bilinear blend rounds in another order, and #6's float atomics add a
-source pixel's contributions in an order that changes from run to run. In
-bf16 one bf16 ulp (at most 2^-7 of the value) on top: both versions round
-one f32 value to bf16, and the two may straddle a rounding boundary.
+bilinear blend rounds in another order, and #6 (a gather: one block owns
+each source texel) adds a texel's contributions in another fixed order,
+chunk by chunk of planes, then by cell and pixel. In bf16 one bf16 ulp (at most 2^-7 of the value) on
+top: both versions round one f32 value to bf16, and the two may straddle a
+rounding boundary. The warp cases include the eval shape with view 0's
+camera centre on one output point (a sample at z's clamp lands in frame,
+outside what the inverse homography reaches) and the extreme poses at
+96x128, whose candidate boxes outgrow one stage of #6 on some planes.
 """
 
 import numpy as np
@@ -280,16 +284,24 @@ def test_ray_head_backward_refuses_long_rays(cuda, dtype):
 WARP_SHAPES = {
     "small": dict(K=2, H=16, W=24, D=8),
     "ragged": dict(K=3, H=13, W=37, D=5),
+    # view 0's camera centre on output point (u0, v0) at plane d0: z at its
+    # clamp there, the sample in frame at (-0.5, -0.5)
+    "at_centre": dict(K=2, H=40, W=56, D=8, at_centre=(20, 13, 4)),
+    # turned views: on some planes a tile's candidate box outgrows one stage
+    "extreme96x128": dict(K=3, H=96, W=128, D=8, extreme=True),
+    # more planes than #6 computes boxes for at once (64)
+    "manyplanes": dict(K=2, H=16, W=24, D=130),
 }
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 
 
-def _warp_inputs(K, H, W, D, dtype, device, seed=0):
+def _warp_inputs(K, H, W, D, dtype, device, seed=0, **geo):
     """Source features, geometry with some samples behind the camera and
     out of frame (chip_smoke.warp_operands), and a cotangent."""
     import chip_smoke
 
-    src, A, b, planes = chip_smoke.warp_operands(K, H, W, D, dtype, seed=seed, device=device)
+    src, A, b, planes = chip_smoke.warp_operands(K, H, W, D, dtype, seed=seed, device=device,
+                                                 **geo)
     gen = torch.Generator().manual_seed(seed + 1)
     ct = torch.randn((K, D, H, W, 16), generator=gen).to(device, dtype)
     return src, A, b, planes, ct
@@ -313,6 +325,49 @@ def test_warp_kernels_match_plain_versions(cuda, shape, dtype):
     ulp = 0.0 if dtype == torch.float32 else BF16_ULP
     np.testing.assert_allclose(out.float().cpu().numpy(), r, atol=2e-4, rtol=1e-4 + ulp)
     np.testing.assert_allclose(g.float().cpu().numpy(), rg, atol=3e-4, rtol=1e-3 + ulp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_transpose_gives_the_same_bits_twice(cuda, dtype):
+    """Each source texel is summed by one block in an order fixed by
+    (chunk of planes, cell, pixel), so two launches agree bit for bit."""
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    for shape in ("at_centre", "extreme96x128"):
+        _, A, b, planes, ct = _warp_inputs(**WARP_SHAPES[shape], dtype=dtype, device=cuda)
+        first = wk.warp_planes_bwd(ct, A, b, planes)
+        assert torch.equal(first, wk.warp_planes_bwd(ct, A, b, planes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_transpose_walks_wide_boxes_in_bands(cuda, dtype):
+    """A homography that shrinks 1400 output columns into 14 source texels:
+    the first tile's candidate box is wider than a chunk holds, so #6
+    walks it in column bands."""
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    K, D, H, W = 1, 2, 4, 1400
+    A = torch.diag(torch.tensor([0.01, 0.01, 1.0]))[None].to(cuda)
+    b = torch.zeros((K, 3), device=cuda)
+    planes = torch.tensor([1.0, 1.5], device=cuda)
+    ct = torch.randn((K, D, H, W, 16), generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    g, gref = wk.warp_planes_bwd(ct, A, b, planes), wk.warp_planes_bwd_reference(ct, A, b, planes)
+    ulp = 0.0 if dtype == torch.float32 else BF16_ULP
+    assert float(gref.float().abs().max()) > 1.0  # the texels near x = 0 gather many pixels
+    np.testing.assert_allclose(g.float().cpu().numpy(), gref.float().cpu().numpy(), atol=3e-4,
+                               rtol=1e-3 + ulp)
+
+
+def test_warp_transpose_layout_matches_the_mirror(cuda):
+    """The tile of ops/warp_kernel.py::candidate_boxes (the mirror the CPU
+    coverage test holds) is the kernel's, and its shared memory fits a block."""
+    from implicit_depth_tpu_torch.ops import cuda_build
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    lib = cuda_build.load("warp_planes.cu", wk._SIGNATURES)
+    assert (lib.warp_planes_bwd_tile_width(), lib.warp_planes_bwd_tile_height()) == wk.BWD_TILE
+    assert 0 < lib.warp_planes_bwd_smem_bytes(1) <= cuda_build.SMEM_LIMIT
+    assert 0 < lib.warp_planes_bwd_smem_bytes(0) <= cuda_build.SMEM_LIMIT
 
 
 def test_warp_kernels_refuse_what_they_do_not_take(cuda):
@@ -379,8 +434,8 @@ def test_regression_train_step_gpu_matches_cpu(cuda):
     """One f32 regression train step of the tiny DepthNet, flip on: GPU
     (kernels #5, #6) against CPU (plain versions), held to chip_smoke.py's
     bounds for the same comparison at flagship width (MODEL_LOSS_REL,
-    MODEL_GRAD_L2: f32 sums in other orders, LeakyReLU slope ties and the
-    transpose's atomics, through the backward of ~40 layers; on the CPU the
+    MODEL_GRAD_L2: f32 sums in other orders and LeakyReLU slope ties,
+    through the backward of ~40 layers; on the CPU the
     JAX package's own f32 step is 4e-2 per parameter from float64,
     tests/test_torch_regression_train.py)."""
     import copy

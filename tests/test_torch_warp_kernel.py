@@ -190,3 +190,62 @@ def test_flat_build_warped_views_gradient_matches_jax():
     (torch.sum(wv.feats ** 2) + torch.sum(wv.dot * t(w)[:, None, None])).backward()
     assert_close(c.grad, jgc, 1e-5)
     assert_close(s.grad, jgs, 1e-5)
+
+
+AT_CENTRE = (20, 13, 4)  # (u0, v0, d0) of chip_smoke.warp_operands' at-centre view 0
+
+
+def _card_operands(kind):
+    """The warp operands of the card checks (chip_smoke.warp_operands), on
+    the CPU at a small shape: "eval" (small random poses), "extreme" (every
+    other view turned ~70 degrees and pushed back) and "at_centre" (view 0's
+    camera centre on output point AT_CENTRE)."""
+    import chip_smoke
+
+    geo = {"eval": {}, "extreme": {"extreme": True}, "at_centre": {"at_centre": AT_CENTRE}}[kind]
+    shape = dict(K=3, H=50, W=70, D=13) if kind == "extreme" else dict(K=2, H=40, W=56, D=8)
+    return chip_smoke.warp_operands(**shape, dtype=torch.float32, seed=1, device="cpu", **geo)
+
+
+def test_at_centre_operands_put_a_clamped_sample_in_frame():
+    """The at-centre operands make r exactly 0 at (u0, v0, d0) of view 0: z
+    sits at its clamp and the sample lands at (-0.5, -0.5), whose tap (1, 1)
+    is texel (0, 0). The inverse homography does not reach such a sample,
+    so the card check of the transpose on these operands tests the kernel's
+    clamped case."""
+    _, A, b, planes = _card_operands("at_centre")
+    x, y, clamped = wk.sample_points(A, b, planes, 40, 56)
+    u0, v0, d0 = AT_CENTRE
+    assert bool(clamped[0, d0, v0, u0])
+    assert x[0, d0, v0, u0].item() == -0.5 and y[0, d0, v0, u0].item() == -0.5
+    in_frame = clamped & (x > -1) & (x < 56) & (y > -1) & (y < 40)
+    assert in_frame[0, d0, v0, u0] and int(in_frame.sum()) >= 1
+
+
+@pytest.mark.parametrize("kind", ["eval", "extreme", "at_centre"])
+def test_candidate_boxes_cover_every_tap(kind):
+    """Every (pixel, plane) whose sample has a tap in a tile of the
+    transpose lies in that tile's candidate box of its case (z clamped or
+    not), as ops/warp_kernel.py::candidate_boxes mirrors the kernel's rule.
+    The samples are the kernels' bits (sample_points)."""
+    _, A, b, planes = _card_operands(kind)
+    K, D = A.shape[0], planes.shape[0]
+    H, W = (50, 70) if kind == "extreme" else (40, 56)
+    tw, th = wk.BWD_TILE
+    boxes = torch.from_numpy(wk.candidate_boxes(A, b, planes, H, W))
+    assert boxes.shape == (K, D, -(-H // th), -(-W // tw), 2, 4)
+    x, y, clamped = wk.sample_points(A, b, planes, H, W)
+    k, d, v, u = torch.meshgrid(*(torch.arange(n) for n in (K, D, H, W)), indexing="ij")
+    taps = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            tx, ty = torch.floor(x).long() + dx, torch.floor(y).long() + dy
+            hit = (tx >= 0) & (tx < W) & (ty >= 0) & (ty < H)
+            box = boxes[k[hit], d[hit], ty[hit] // th, tx[hit] // tw, clamped[hit].long()]
+            uu, vv = u[hit], v[hit]
+            inside = (uu >= box[:, 0]) & (uu <= box[:, 1]) & (vv >= box[:, 2]) & (vv <= box[:, 3])
+            assert bool(inside.all()), f"{int((~inside).sum())} taps outside their boxes"
+            taps += int(hit.sum())
+    assert taps > 10_000
+    has_clamped_box = bool((boxes[..., 1, 0] <= boxes[..., 1, 1]).any())
+    assert has_clamped_box == (kind == "at_centre")
