@@ -10,7 +10,7 @@ non-zero:
                 implicit_depth_tpu_torch/csrc/, one process per source, all at
                 once; the ptxas register and spill report of each, and the
                 count of tensor-core (HMMA) instructions in kernel #2's
-                library and in #1's and #4's bf16 functions, with those
+                library and in #1's, #3's and #4's bf16 functions, with those
                 functions' registers and spills; for the warp transpose
                 (#6) its registers, spills, shared memory and tile, and the
                 count of global reduction and atomic instructions in its
@@ -33,14 +33,15 @@ non-zero:
                 then the bf16 kernel at the train step's b=12, where each
                 block walks several tiles, against its plain version run one
                 batch element at a time.
-5. kernel-ray:  the ray-head forward and backward (kernels #3, #4; bf16 #4
-                on tensor cores) against their plain versions (bf16: the
-                JAX kernel's chain with its rounding points) at b=12,
-                N=4096, S=64 (bf16, with and without the prior) and at a
-                ragged N=100, S=13 (bf16 and f32); in bf16 per output the
-                relative L2 error and the share of per-row elements outside
-                a few bf16 ulps, and how far the plain version itself moves
-                under 1e-5 noise on b1; medians and bounds.
+5. kernel-ray:  the ray-head forward and backward (kernels #3, #4; in bf16
+                both on tensor cores) against their plain versions (bf16:
+                the JAX kernel's chain with its rounding points) at b=12,
+                N=4096, S=64 (bf16, with and without the prior), at a ragged
+                N=100, S=13 (bf16 and f32) and at the BD step's scale-2
+                N=1366 (bf16); in bf16 per output the relative L2 error and
+                the share of per-row elements outside a few bf16 ulps, and
+                how far the plain version itself moves under 1e-5 noise on
+                b1; medians, bounds and each kernel's share of its bound.
 6. main:        `evaluate_scenes` with the flagship BDNet (EfficientNetV2-S,
                 7 source views, 64 planes, 8 query planes, bf16, seeded
                 random weights) over 5 synthetic 512x384 tuples at b=1; kernel
@@ -127,24 +128,26 @@ RAY_TOL = (1e-5, 1e-5)
 RAY_BWD_REL = 1e-4
 # In bf16 both sides round to bf16 at the JAX kernel's rounding points. Where
 # their f32 values differ in the last bits (sums in another order, the
-# tensor cores' accumulation, the kernels' expf against the plain versions'
-# correctly rounded exp), a rounding can land on the other side: one bf16
-# ulp, at most 2^-7 of the value. ELU's derivative is continuous at 0, so
-# such a straddle moves what depends on it by about an ulp, not by ~100% as a
-# LeakyReLU slope flip does in the volume kernels. So the per-row elements
-# (the logits, dd, dp and dfp) meet RAY_BF16_ULPS bf16 ulps (2^-8 of
-# max(|ref|, rms(ref)): a sum near 0 moves by the ulps of its terms) at all
-# but a share RAY_BF16_OUTSIDE, and every output and cotangent is within a
-# relative L2 error of RAY_BF16_REL_L2. kernel-ray prints how far the plain
-# version itself moves under 1e-5 relative noise on b1 (kept in f32): a
-# worst relative L2 of 2.3e-4 on the H100, against a worst 1.8e-4 and a
-# share outside of at most 1e-6 for kernel vs plain over the four bf16
-# shapes; the bounds leave 4x and 1000x of that.
+# tensor cores' accumulation, the kernels' __expf (ex2.approx, a few f32
+# ulps) against the plain versions' correctly rounded exp), a rounding can
+# land on the other side: one bf16 ulp, at most 2^-7 of the value. ELU's
+# derivative is continuous at 0, so such a straddle moves what depends on it
+# by about an ulp, not by ~100% as a LeakyReLU slope flip does in the volume
+# kernels. So the per-row elements (the logits, dd, dp and dfp) meet
+# RAY_BF16_ULPS bf16 ulps (2^-8 of max(|ref|, rms(ref)): a sum near 0 moves
+# by the ulps of its terms) at all but a share RAY_BF16_OUTSIDE, and every
+# output and cotangent is within a relative L2 error of RAY_BF16_REL_L2.
+# kernel-ray prints how far the plain version itself moves under 1e-5
+# relative noise on b1 (kept in f32): a worst relative L2 of 2.3e-4 on the
+# H100, against a worst 1.3e-4 and a share outside of at most 1e-6 for
+# kernel vs plain over the five bf16 cases; the bounds leave 7x and 1000x of
+# that.
 RAY_BF16_ULPS, RAY_BF16_OUTSIDE, RAY_BF16_REL_L2 = 4, 1e-3, 1e-3
 FLAGSHIP = dict(B=1, K=7, H=96, W=128, D=64)
 RAGGED = dict(B=2, K=3, H=50, W=70, D=13)
 RAY_FLAGSHIP = dict(b=12, n=4096, s=64)
 RAY_RAGGED = dict(b=2, n=100, s=13)
+RAY_SCALE2 = dict(b=12, n=1366, s=64)  # the BD step's scale-2 launch
 TIMED_RUNS = 20
 # the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
 # dense bf16 tensor-core FLOP/s; a bound is the larger of bytes / HBM and
@@ -248,16 +251,19 @@ def phase_build() -> None:
           f"{lib.fused_metadata_volume_plane_group()} planes", flush=True)
     if hmma == 0:
         raise AssertionError("the volume forward's bf16 function holds no tensor-core instruction")
-    fn = "ray_head_bwd_bf16_kernel"
-    hmma = _sass_count(libs["ray_head.cu"], fn)
     lib = cuda_build.load("ray_head.cu", rh._SIGNATURES)
-    print(f"  ray_head.cu {fn}: {hmma} HMMA instructions; ptxas "
-          f"{_ptxas_report(libs['ray_head.cu'].with_suffix('.log').read_text(), fn)}; "
-          f"{lib.ray_head_bwd_threads(1)} threads and {lib.ray_head_bwd_smem_bytes(1)} bytes of "
-          "shared memory a block", flush=True)
-    if hmma == 0:
-        raise AssertionError("the ray-head backward's bf16 function holds no tensor-core "
-                             "instruction")
+    log = libs["ray_head.cu"].with_suffix(".log").read_text()
+    for fn, what, threads, smem in (
+            ("ray_head_fwd_bf16_kernel", "forward", lib.ray_head_fwd_threads(1),
+             lib.ray_head_fwd_smem_bytes(1)),
+            ("ray_head_bwd_bf16_kernel", "backward", lib.ray_head_bwd_threads(1),
+             lib.ray_head_bwd_smem_bytes(1))):
+        hmma = _sass_count(libs["ray_head.cu"], fn)
+        print(f"  ray_head.cu {fn}: {hmma} HMMA instructions; ptxas {_ptxas_report(log, fn)}; "
+              f"{threads} threads and {smem} bytes of shared memory a block", flush=True)
+        if hmma == 0:
+            raise AssertionError(f"the ray-head {what}'s bf16 function holds no tensor-core "
+                                 "instruction")
     fn = "warp_planes_bwd_kernel"
     atomics = _sass_count(libs["warp_planes.cu"], fn, GLOBAL_ATOMICS)
     lib = cuda_build.load("warp_planes.cu", wk._SIGNATURES)
@@ -585,7 +591,7 @@ def check_ray_bf16(label: str, got: dict, ref: dict) -> tuple:
           f"{summary} (bounds {RAY_BF16_REL_L2} / {RAY_BF16_OUTSIDE})", flush=True)
     if bad:
         raise AssertionError(f"kernel-ray {label}: {bad} disagree with the plain version")
-    return errs["out"][2], max(e[2] for n, e in errs.items() if n != "out")
+    return errs["out"][2], max((e[2] for n, e in errs.items() if n != "out"), default=0.0)
 
 
 def check_ray_f32(label: str, out, ref, gk, gr) -> tuple:
@@ -622,6 +628,7 @@ def phase_kernel_ray() -> dict:
             ("flagship prior bf16", RAY_FLAGSHIP, True, torch.bfloat16),
             ("ragged noprior bf16", RAY_RAGGED, False, torch.bfloat16),
             ("ragged prior bf16", RAY_RAGGED, True, torch.bfloat16),
+            ("scale-2 noprior bf16", RAY_SCALE2, False, torch.bfloat16),
             ("ragged noprior f32", RAY_RAGGED, False, torch.float32),
             ("ragged prior f32", RAY_RAGGED, True, torch.float32)):
         label += f" b={shape['b']} N={shape['n']} S={shape['s']}"
@@ -663,13 +670,21 @@ def phase_kernel_ray() -> dict:
             bb = least_ms(nbytes(*ops[:-1], ct) + nbytes(*(t for t in grads if t is not None)),
                           2.0 * rows * (3 * F_ * F_ + 8 * F_))
             del grads
-            print(f"kernel-ray {label}: forward kernel {f_ms:.3f} ms, plain {f_plain:.3f} ms, "
-                  f"bound {fb[0]:.4f} ms ({fb[1]}); backward kernel {b_ms_k:.3f} ms, plain "
+            print(f"kernel-ray {label}: forward kernel {f_ms:.3f} ms ({fb[0] / f_ms:.1%} of its "
+                  f"bound's rate), plain {f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); "
+                  f"backward kernel {b_ms_k:.3f} ms ({bb[0] / b_ms_k:.1%}), plain "
                   f"{b_plain:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}) (medians)", flush=True)
             result["fwd"] = {"max_abs_err": fwd_err, "ms": f_ms, "plain_ms": f_plain,
                              "bound_ms": fb[0], "bound_by": fb[1]}
             result["bwd"] = {"max_abs_err": bwd_err, "ms": b_ms_k, "plain_ms": b_plain,
                              "bound_ms": bb[0], "bound_by": bb[1]}
+        elif shape is RAY_SCALE2:
+            with torch.no_grad():
+                f_ms = cuda_ms(lambda: rh.ray_head_fwd(*ops))
+            rows = shape["b"] * shape["n"] * shape["s"]
+            fb = least_ms(nbytes(*ops, out), 2.0 * rows * (F_ * F_ + 3 * F_))
+            print(f"kernel-ray {label}: forward kernel {f_ms:.3f} ms ({fb[0] / f_ms:.1%} of its "
+                  f"bound's rate), bound {fb[0]:.4f} ms ({fb[1]}) (median)", flush=True)
         del ops, ct, out
         torch.cuda.empty_cache()
     return result

@@ -25,20 +25,22 @@
 // dh and dz; every dz k0d, dz d, dz p product and dd, dp. Products' sums and
 // the weight gradients stay in f32.
 //
-// Forward (both types) and the f32 backward: one thread per row keeps h (128)
-// in registers; W1 (transposed, so that both z2 = W1^T h and dh = W1 dz2 read
-// rows of 128 contiguous floats) and the vectors sit in shared memory as f32
-// and are read as warp-wide broadcasts. The f32 backward's blocks own whole
-// rays, so dfp is summed inside the block; the weight gradients go into one
-// f32 slab per block (dW1 through a register-tiled product of the tile's
-// staged h and dz2), and a second kernel sums the slabs in a fixed order, so
-// the sums are the same on every run.
+// The f32 forward and backward run on CUDA cores: one thread per row keeps h
+// (128) in registers; W1 (transposed, so that both z2 = W1^T h and dh = W1
+// dz2 read rows of 128 contiguous floats) and the vectors sit in shared
+// memory as f32 and are read as warp-wide broadcasts. The f32 backward's
+// blocks own whole rays, so dfp is summed inside the block; the weight
+// gradients go into one f32 slab per block (dW1 through a register-tiled
+// product of the tile's staged h and dz2), and a second kernel sums the
+// slabs in a fixed order, so the sums are the same on every run.
 //
-// The bf16 backward runs its three 128 x 128 products per row (z2, dh, dW1)
-// on tensor cores (namespace tc below). Between them sit ~15 roundings to
-// bf16 and two exps per (row, unit), which the JAX kernel's function asks
-// for; with 8 warps an SM, that elementwise work, not the products, takes
-// most of its time.
+// The bf16 forward and backward run their 128 x 128 products per row (z2;
+// the backward also dh and dW1) on tensor cores (namespace tc below), and
+// share the chain's arithmetic (h_pair, h2_pair): the h and h2 the backward
+// recomputes are the forward's, bit for bit. Between the products sit the
+// roundings to bf16 and one exp per (row, unit) and layer, which the JAX
+// kernel's function asks for; with 8 warps an SM, that elementwise work, not
+// the products, takes most of their time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,31 +56,16 @@ constexpr int BWD_THREADS = 128;  // rows per backward tile at most; == F
 constexpr int RS = F + 4;         // row stride of the staged tiles (conflict-free float4 rows)
 constexpr int SLAB = F * F + 5 * F + 4;  // dW1 | db1 | dw2 | dk0d | dk0p | db2 (+ pad)
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_float(float x, float* o) { *o = x; }
-__device__ __forceinline__ void from_float(float x, __nv_bfloat16* o) { *o = __float2bfloat16(x); }
-
 __device__ __forceinline__ float elu(float z) { return z > 0.f ? z : expm1f(z); }
 
 // x rounded to bf16 and back
 __device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-// the bf16 chain's ELU: exp(z) - 1 in f32 below 0, rounded (the JAX kernel's
-// _elu)
-__device__ __forceinline__ float elu_bf16(float z) { return rnd(z > 0.f ? z : expf(z) - 1.f); }
-
-// a weight as the chain of operand type T uses it: as it is in f32, rounded
-// to bf16 for bf16 operands
-template <typename T>
-__device__ __forceinline__ float weight(float x) {
-  return sizeof(T) == 2 ? rnd(x) : x;
-}
-
-// The same roundings two values at a time, with one packed conversion
+// Roundings two values at a time, with one packed conversion
 // (cvt.rn.bf16x2.f32): rnd2 returns the pair rounded and back, bf2 the
-// bf16 pair itself (to store); the elu likewise, and its derivative from the
-// rounded h: 1 or h + 1, rounded (the JAX kernel's _delu).
+// bf16 pair itself (to store); elu2_bf16 the chain's ELU (exp(z) - 1 in f32
+// below 0, rounded: the JAX kernel's _elu), delu2_bf16 its derivative from
+// the rounded h: 1 or h + 1, rounded (_delu).
 __device__ __forceinline__ __nv_bfloat162 bf2(float a, float b) {
   return __floats2bfloat162_rn(a, b);
 }
@@ -97,6 +84,26 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The bf16 chain of the tensor-core forward and backward, two adjacent
+// units of a row at a time (the JAX kernel's _forward_tile):
+// h = bf16(elu(bf16(bf16(fp + bf16(d k0d)) [+ bf16(p k0p)]))), with kd, kp
+// the units' k0d, k0p already rounded to bf16,
+__device__ __forceinline__ __nv_bfloat162 h_pair(__nv_bfloat162 fp, float dv, float pv,
+                                                 float2 kd, float2 kp, bool prior) {
+  const float2 x = __bfloat1622float2(fp);
+  const float2 dk = rnd2(dv * kd.x, dv * kd.y);
+  float2 z = rnd2(x.x + dk.x, x.y + dk.y);
+  if (prior) {
+    const float2 pk = rnd2(pv * kp.x, pv * kp.y);
+    z = rnd2(z.x + pk.x, z.y + pk.y);
+  }
+  return elu2_bf16(z.x, z.y);
+}
+// and h2 = bf16(elu(z2 + b1)) from the f32 accumulators of z2 = h W1.
+__device__ __forceinline__ float2 h2_pair(float z0, float z1, float2 b) {
+  return __bfloat1622float2(elu2_bf16(z0 + b.x, z1 + b.y));
+}
+
 // row[f] for the F values at p (16-byte aligned)
 __device__ __forceinline__ void load_row(const float* p, float* row) {
   const float4* q = reinterpret_cast<const float4*>(p);
@@ -107,21 +114,6 @@ __device__ __forceinline__ void load_row(const float* p, float* row) {
     row[4 * i + 1] = t.y;
     row[4 * i + 2] = t.z;
     row[4 * i + 3] = t.w;
-  }
-}
-
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* row) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < F / 8; ++i) {
-    const uint4 t = __ldg(q + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      row[8 * i + 2 * j + 0] = f.x;
-      row[8 * i + 2 * j + 1] = f.y;
-    }
   }
 }
 
@@ -157,57 +149,44 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// s_w1T[j * F + i] = w1[i * F + j], plus the F-vectors (all but b1 as the
-// chain of operand type T uses them), staged once per block
-template <typename T>
+// s_w1T[j * F + i] = w1[i * F + j], plus the F-vectors, staged once per block
 __device__ void stage_weights(const float* w1, const float* k0d, const float* k0p,
                               const float* b1, const float* w2, float* s_w1T, float* s_k0d,
                               float* s_k0p, float* s_b1, float* s_w2) {
   for (int i = threadIdx.x; i < F * F; i += blockDim.x) {
     const int j = i / F, r = i % F;
-    s_w1T[i] = weight<T>(w1[r * F + j]);
+    s_w1T[i] = w1[r * F + j];
   }
   for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    s_k0d[i] = weight<T>(k0d[i]);
-    s_k0p[i] = k0p != nullptr ? weight<T>(k0p[i]) : 0.f;
+    s_k0d[i] = k0d[i];
+    s_k0p[i] = k0p != nullptr ? k0p[i] : 0.f;
     s_b1[i] = b1[i];
-    s_w2[i] = weight<T>(w2[i]);
+    s_w2[i] = w2[i];
   }
   __syncthreads();
 }
 
 // h = elu(fp + d k0d + p k0p) for one row
-template <typename T>
-__device__ __forceinline__ void first_layer(const T* fprow, float dv, float pv, bool prior,
+__device__ __forceinline__ void first_layer(const float* fprow, float dv, float pv, bool prior,
                                             const float* s_k0d, const float* s_k0p, float* h) {
   load_row(fprow, h);
-  if constexpr (sizeof(T) == 2) {
 #pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float z = rnd(h[f] + rnd(dv * s_k0d[f]));
-      if (prior) z = rnd(z + rnd(pv * s_k0p[f]));
-      h[f] = elu_bf16(z);
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      float z = h[f] + dv * s_k0d[f];
-      if (prior) z += pv * s_k0p[f];
-      h[f] = elu(z);
-    }
+  for (int f = 0; f < F; ++f) {
+    float z = h[f] + dv * s_k0d[f];
+    if (prior) z += pv * s_k0p[f];
+    h[f] = elu(z);
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(FWD_THREADS, 1) ray_head_fwd_kernel(
-    const T* __restrict__ fp,      // (rays, F)
-    const T* __restrict__ d,       // (rays, S)
-    const T* __restrict__ p,       // (rays, S) or null
+    const float* __restrict__ fp,  // (rays, F)
+    const float* __restrict__ d,   // (rays, S)
+    const float* __restrict__ p,   // (rays, S) or null
     const float* __restrict__ k0d, const float* __restrict__ k0p,  // (F,), k0p or null
     const float* __restrict__ w1,  // (F, F), (in, out)
     const float* __restrict__ b1, const float* __restrict__ w2,    // (F,)
     const float* __restrict__ b2,  // (1,)
-    T* __restrict__ out,           // (rays, S)
+    float* __restrict__ out,       // (rays, S)
     long long rows, int S) {
   extern __shared__ float4 smem4[];
   float* s_w1T = reinterpret_cast<float*>(smem4);
@@ -215,27 +194,17 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) ray_head_fwd_kernel(
   float* s_k0p = s_k0d + F;
   float* s_b1 = s_k0p + F;
   float* s_w2 = s_b1 + F;
-  stage_weights<T>(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
+  stage_weights(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
   const bool prior = p != nullptr;
   const float bias2 = b2[0];
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += step) {
     float h[F];
-    first_layer(fp + (r / S) * F, to_float(d[r]), prior ? to_float(p[r]) : 0.f, prior, s_k0d,
-                s_k0p, h);
-    if constexpr (sizeof(T) == 2) {
-      // pred = bf16(sum_j bf16(h2_j w2_j) + b2): the store rounds
-      float acc = 0.f;
+    first_layer(fp + (r / S) * F, d[r], prior ? p[r] : 0.f, prior, s_k0d, s_k0p, h);
+    float acc = bias2;
 #pragma unroll 1
-      for (int j = 0; j < F; ++j)
-        acc += rnd(s_w2[j] * elu_bf16(s_b1[j] + dot_row(s_w1T + j * F, h)));
-      from_float(acc + bias2, out + r);
-    } else {
-      float acc = bias2;
-#pragma unroll 1
-      for (int j = 0; j < F; ++j) acc += s_w2[j] * elu(s_b1[j] + dot_row(s_w1T + j * F, h));
-      from_float(acc, out + r);
-    }
+    for (int j = 0; j < F; ++j) acc += s_w2[j] * elu(s_b1[j] + dot_row(s_w1T + j * F, h));
+    out[r] = acc;
   }
 }
 
@@ -269,10 +238,9 @@ __device__ void tile_outer(const float* A, const float* B, float* slab) {
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
-    const T* __restrict__ fp, const T* __restrict__ d, const T* __restrict__ p,
-    const T* __restrict__ ct,  // (rays, S) output cotangent
+    const float* __restrict__ fp, const float* __restrict__ d, const float* __restrict__ p,
+    const float* __restrict__ ct,  // (rays, S) output cotangent
     const float* __restrict__ k0d, const float* __restrict__ k0p,
     const float* __restrict__ w1, const float* __restrict__ b1, const float* __restrict__ w2,
     float* __restrict__ dfp,    // (rays, F)
@@ -290,7 +258,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
   float* s_p = s_d + BWD_THREADS;   // [BWD_THREADS]
   float* Hs = s_p + BWD_THREADS;    // [BWD_THREADS][RS]: h, then dz
   float* Gs = Hs + BWD_THREADS * RS;  // [BWD_THREADS][RS]: dz2
-  stage_weights<T>(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
+  stage_weights(w1, k0d, k0p, b1, w2, s_w1T, s_k0d, s_k0p, s_b1, s_w2);
 
   const bool prior = p != nullptr;
   const int t = threadIdx.x, lane = t & 31;
@@ -310,9 +278,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
     const long long ray0 = tile * rays_per_tile;
     const long long r = ray0 * S + t;
     const bool valid = t < rows_per_tile && r < rows;
-    const float dv = valid ? to_float(d[r]) : 0.f;
-    const float pv = valid && prior ? to_float(p[r]) : 0.f;
-    const float cv = valid ? to_float(ct[r]) : 0.f;
+    const float dv = valid ? d[r] : 0.f;
+    const float pv = valid && prior ? p[r] : 0.f;
+    const float cv = valid ? ct[r] : 0.f;
     s_d[t] = dv;
     s_p[t] = pv;
 
@@ -424,11 +392,33 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
 
 // ---------------------------------------------------------------- bf16: tensor cores
 //
-// 8 warps walk tiles of TR = 128 rows, each tile floor(128 / S) whole rays
-// (S <= 128), so a ray's dfp sum stays inside the block; rows past the
-// tile's rays are pads with zero inputs and a zero cotangent, which add
-// nothing to any gradient and are not stored. Blocks are persistent, at most
-// one per SM (177,664 bytes of shared memory). Per tile:
+// Both kernels hold W1 in shared memory once per block, as W1^T [j][i] in
+// bf16 with rows LDH = F + 8 elements apart (272 bytes: ldmatrix and the
+// epilogues' 4-byte accesses are conflict-free), and run z2 = h W1 on
+// mma.sync m16n8k16 (bf16 in, f32 accumulation), each warp its 16 rows in
+// two halves of 64 columns (32 live accumulators), the k-slices in the same
+// order: the backward's z2 is the forward's, bit for bit.
+//
+// Forward. Persistent blocks of 8 warps (two an SM) walk tiles of TR = 128
+// flat rows, one 16-row mma tile a warp; there is no sum over a ray, so a
+// tile need not hold whole rays, each row reads fp at row / S, and S is not
+// bounded. Per tile:
+// 1. h straight into the warp's A fragments (lane (g, q) holds rows g, g+8
+//    at columns 16s + 2q (+1), 16s + 2q + 8 (+9) of every k-slice s: 32
+//    registers), from 4-byte fp loads, all issued before the chain; where
+//    the warp's 16 rows lie in one ray, the 8 row groups read the same
+//    addresses;
+// 2. z2 = h W1 on tensor cores, B fragments from W1^T by ldmatrix;
+// 3. pred = bf16(sum_j bf16(h2_j w2_j) + b2), h2 = bf16(elu(z2 + b1)): each
+//    lane sums its columns in f32, the quad's lanes and the two halves are
+//    added (the JAX kernel's _rowsum, in another order), and lane q = 0
+//    stores the row.
+//
+// Backward. 8 warps walk tiles of TR = 128 rows, each tile floor(128 / S)
+// whole rays (S <= 128), so a ray's dfp sum stays inside the block; rows
+// past the tile's rays are pads with zero inputs and a zero cotangent, which
+// add nothing to any gradient and are not stored. Blocks are persistent, at
+// most one per SM (177,664 bytes of shared memory). Per tile:
 // 1. every warp stages its 16 rows of d, p, ct and of h = bf16(elu z);
 // 2. z2 = h W1 on mma.sync m16n8k16 (bf16 in, f32 accumulation), the warp's
 //    16 rows in two halves of 64 columns; in registers h2, dz2, h2 ct; dz2
@@ -441,9 +431,8 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) ray_head_bwd_kernel(
 // 5. dfp per ray, f32 sums of the dz stage; the column sums of db1, dw2,
 //    dk0d, dk0p and db2 in per-thread registers, also across tiles.
 // At the end each block writes dW1 and its vector sums once to its slab.
-// W1 sits in shared memory once, as W1^T [j][i] in bf16: z2 reads it by
-// ldmatrix, dh by ldmatrix.trans. Rows of the bf16 stages are 272 bytes
-// apart, so ldmatrix and the epilogues' 4-byte accesses are conflict-free.
+// z2 reads W1^T by ldmatrix, dh by ldmatrix.trans; the stages' rows are LDH
+// elements apart, as W1^T's.
 
 namespace tc {
 
@@ -467,6 +456,121 @@ constexpr size_t OFF_ROW = OFF_VEC + 4 * 4 * (size_t)F;
 constexpr size_t SMEM = OFF_ROW + 3 * 4 * (size_t)TR;
 static_assert(F == TR, "W1^T shares the stages' shape");
 static_assert(4 * (size_t)(PARTS * 4 * F + TR) <= STAGE, "the end's sums fit the h stage");
+// the forward: W1^T | k0d, k0p, b1, w2 (f32)
+constexpr int FWD_BLOCKS_PER_SM = 2;
+constexpr size_t FWD_SMEM = STAGE + 4 * 4 * (size_t)F;
+
+// W1^T in bf16 and the F-vectors (k0d, k0p, w2 rounded to bf16, b1 as it
+// is), once per block
+__device__ void stage_weights_bf16(const float* w1, const float* k0d, const float* k0p,
+                                   const float* b1, const float* w2, __nv_bfloat16* s_w1,
+                                   float* s_k0d, float* s_k0p, float* s_b1, float* s_w2) {
+  for (int i = threadIdx.x; i < F * F; i += THREADS)  // coalesced reads, transposed writes
+    s_w1[(i % F) * LDH + i / F] = __float2bfloat16_rn(w1[i]);
+  for (int i = threadIdx.x; i < F; i += THREADS) {
+    s_k0d[i] = rnd(k0d[i]);
+    s_k0p[i] = k0p != nullptr ? rnd(k0p[i]) : 0.f;
+    s_b1[i] = b1[i];
+    s_w2[i] = rnd(w2[i]);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(THREADS, FWD_BLOCKS_PER_SM) ray_head_fwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ fp,  // (rays, F)
+    const __nv_bfloat16* __restrict__ d,   // (rays, S)
+    const __nv_bfloat16* __restrict__ p,   // (rays, S) or null
+    const float* __restrict__ k0d, const float* __restrict__ k0p,  // (F,), k0p or null
+    const float* __restrict__ w1,  // (F, F), (in, out)
+    const float* __restrict__ b1, const float* __restrict__ w2,    // (F,)
+    const float* __restrict__ b2,  // (1,)
+    __nv_bfloat16* __restrict__ out,  // (rays, S)
+    long long rows, int S) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  __nv_bfloat16* s_w1 = reinterpret_cast<__nv_bfloat16*>(smem_tc);  // [j][i]
+  float* s_k0d = reinterpret_cast<float*>(smem_tc + STAGE);
+  float* s_k0p = s_k0d + F;
+  float* s_b1 = s_k0p + F;
+  float* s_w2 = s_b1 + F;
+  stage_weights_bf16(w1, k0d, k0p, b1, w2, s_w1, s_k0d, s_k0p, s_b1, s_w2);
+
+  const bool prior = p != nullptr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int o_w1 = frag_off(LDH, lane, false);  // B: W1^T as [n = j][k = i]
+  const float bias2 = b2[0];
+  const long long ntiles = (rows + TR - 1) / TR;
+
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    // the lane's rows g and g + 8 of the warp's 16; rows past the end
+    // compute on the last row and are not stored
+    const long long row0 = tile * TR + 16 * warp + g;
+    const long long ra = row0 < rows ? row0 : rows - 1;
+    const long long rb = row0 + 8 < rows ? row0 + 8 : rows - 1;
+
+    // ---- 1. h as the A fragments of z2 = h W1
+    const __nv_bfloat16* fa = fp + (ra / S) * F + 2 * q;
+    const __nv_bfloat16* fb = fp + (rb / S) * F + 2 * q;
+    uint32_t a[KS][4];  // fp pairs, then h pairs
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      a[s][0] = __ldg(reinterpret_cast<const unsigned*>(fa + 16 * s));
+      a[s][1] = __ldg(reinterpret_cast<const unsigned*>(fb + 16 * s));
+      a[s][2] = __ldg(reinterpret_cast<const unsigned*>(fa + 16 * s + 8));
+      a[s][3] = __ldg(reinterpret_cast<const unsigned*>(fb + 16 * s + 8));
+    }
+    const float da = __bfloat162float(d[ra]), db = __bfloat162float(d[rb]);
+    const float pa = prior ? __bfloat162float(p[ra]) : 0.f;
+    const float pb = prior ? __bfloat162float(p[rb]) : 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 16 * s + 2 * q + 8 * (e >> 1);
+        const float2 kd = *reinterpret_cast<const float2*>(s_k0d + c);
+        const float2 kp = *reinterpret_cast<const float2*>(s_k0p + c);
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a[s][e]);
+        a[s][e] = (e & 1) ? bits(h_pair(x, db, pb, kd, kp, prior))
+                          : bits(h_pair(x, da, pa, kd, kp, prior));
+      }
+    }
+
+    // ---- 2. z2 = h W1 + b1 on tensor cores; 3. sum_j bf16(h2_j w2_j)
+    float part[2] = {0.f, 0.f};  // rows g, g + 8
+#pragma unroll 1
+    for (int hh = 0; hh < 2; ++hh) {
+      float acc[NT / 2][4];
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+#pragma unroll
+        for (int t2 = 0; t2 < NT / 4; ++t2) {
+          uint32_t b[4];
+          ldsm4(b, s_w1 + o_w1 + (64 * hh + 16 * t2) * LDH + s * 16);
+          mma(acc[2 * t2], a[s], b[0], b[1]);
+          mma(acc[2 * t2 + 1], a[s], b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < NT / 2; ++t) {
+        const int j = 64 * hh + 8 * t + 2 * q;
+        const float2 bj = *reinterpret_cast<const float2*>(s_b1 + j);
+        const float2 wj = *reinterpret_cast<const float2*>(s_w2 + j);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 y = h2_pair(acc[t][2 * r], acc[t][2 * r + 1], bj);
+          const float2 o = rnd2(y.x * wj.x, y.y * wj.y);
+          part[r] += o.x + o.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float v = quad_sum(part[r]);
+      if (q == 0 && row0 + 8 * r < rows) out[row0 + 8 * r] = __float2bfloat16_rn(v + bias2);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(THREADS, 1) ray_head_bwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ fp,  // (rays, F)
@@ -495,16 +599,8 @@ __global__ void __launch_bounds__(THREADS, 1) ray_head_bwd_bf16_kernel(
   float* s_p = s_d + TR;
   float* s_ct = s_p + TR;
 
+  stage_weights_bf16(w1, k0d, k0p, b1, w2, s_w1, s_k0d, s_k0p, s_b1, s_w2);
   const int tid = threadIdx.x;
-  for (int i = tid; i < F * F; i += THREADS)  // coalesced reads, transposed writes
-    s_w1[(i % F) * LDH + i / F] = __float2bfloat16_rn(w1[i]);
-  for (int i = tid; i < F; i += THREADS) {
-    s_k0d[i] = rnd(k0d[i]);
-    s_k0p[i] = k0p != nullptr ? rnd(k0p[i]) : 0.f;
-    s_b1[i] = b1[i];
-    s_w2[i] = rnd(w2[i]);
-  }
-  __syncthreads();
 
   const bool prior = p != nullptr;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
@@ -568,16 +664,9 @@ __global__ void __launch_bounds__(THREADS, 1) ray_head_bwd_bf16_kernel(
         uint32_t* h2 = reinterpret_cast<uint32_t*>(&hv);
         const float dv = s_d[r], pv = s_p[r];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 x = __bfloat1622float2(f2[e]);
-          const float2 dk = rnd2(dv * kd8[2 * e], dv * kd8[2 * e + 1]);
-          float2 z = rnd2(x.x + dk.x, x.y + dk.y);
-          if (prior) {
-            const float2 pk = rnd2(pv * kp8[2 * e], pv * kp8[2 * e + 1]);
-            z = rnd2(z.x + pk.x, z.y + pk.y);
-          }
-          h2[e] = bits(elu2_bf16(z.x, z.y));
-        }
+        for (int e = 0; e < 4; ++e)
+          h2[e] = bits(h_pair(f2[e], dv, pv, make_float2(kd8[2 * e], kd8[2 * e + 1]),
+                              make_float2(kp8[2 * e], kp8[2 * e + 1]), prior));
       }
       *reinterpret_cast<uint4*>(s_h + r * LDH + 8 * chunk) = hv;
     }
@@ -611,8 +700,7 @@ __global__ void __launch_bounds__(THREADS, 1) ray_head_bwd_bf16_kernel(
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float c = r ? ct1 : ct0;
-          const float2 h2 = __bfloat1622float2(
-              elu2_bf16(acc[t][2 * r] + b.x, acc[t][2 * r + 1] + b.y));
+          const float2 h2 = h2_pair(acc[t][2 * r], acc[t][2 * r + 1], b);
           const float2 cw = rnd2(c * w.x, c * w.y);
           const float2 dl = delu2_bf16(h2);
           const int o = (row0 + g + 8 * r) * LDH + j;
@@ -769,46 +857,59 @@ __global__ void sum_slabs_kernel(const float* __restrict__ slabs, int nslabs, lo
 constexpr size_t FWD_SMEM = sizeof(float) * (F * F + 4 * F);
 constexpr size_t BWD_SMEM = sizeof(float) * (F * F + 4 * F + 2 * BWD_THREADS + 2 * BWD_THREADS * RS);
 
-template <typename T>
-int launch_fwd(const void* fp, const void* d, const void* p, const void* k0d, const void* k0p,
-               const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-               long long nrays, int S, int grid, void* stream) {
+// bf16: the tensor-core kernel, f32: the CUDA-core one
+int launch_fwd(bool bf16, const void* fp, const void* d, const void* p, const void* k0d,
+               const void* k0p, const void* w1, const void* b1, const void* w2, const void* b2,
+               void* out, long long nrays, int S, int grid, void* stream) {
   const long long rows = nrays * S;
   if (rows == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(ray_head_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  ray_head_fwd_kernel<T><<<grid, FWD_THREADS, FWD_SMEM, (cudaStream_t)stream>>>(
-      (const T*)fp, (const T*)d, (const T*)p, (const float*)k0d, (const float*)k0p,
-      (const float*)w1, (const float*)b1, (const float*)w2, (const float*)b2, (T*)out, rows, S);
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (bf16) {
+    err = cudaFuncSetAttribute(tc::ray_head_fwd_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::FWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    tc::ray_head_fwd_bf16_kernel<<<grid, tc::THREADS, tc::FWD_SMEM, s>>>(
+        (const __nv_bfloat16*)fp, (const __nv_bfloat16*)d, (const __nv_bfloat16*)p,
+        (const float*)k0d, (const float*)k0p, (const float*)w1, (const float*)b1,
+        (const float*)w2, (const float*)b2, (__nv_bfloat16*)out, rows, S);
+  } else {
+    err = cudaFuncSetAttribute(ray_head_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)FWD_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ray_head_fwd_kernel<<<grid, FWD_THREADS, FWD_SMEM, s>>>(
+        (const float*)fp, (const float*)d, (const float*)p, (const float*)k0d,
+        (const float*)k0p, (const float*)w1, (const float*)b1, (const float*)w2,
+        (const float*)b2, (float*)out, rows, S);
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_bwd(const void* fp, const void* d, const void* p, const void* ct, const void* k0d,
-               const void* k0p, const void* w1, const void* b1, const void* w2, void* dfp,
-               void* dd, void* dp, void* slabs, void* grads, long long nrays, int S, int nslabs,
-               void* stream) {
+int launch_bwd(bool bf16, const void* fp, const void* d, const void* p, const void* ct,
+               const void* k0d, const void* k0p, const void* w1, const void* b1, const void* w2,
+               void* dfp, void* dd, void* dp, void* slabs, void* grads, long long nrays, int S,
+               int nslabs, void* stream) {
   if (nrays == 0 || nslabs <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
-  if constexpr (sizeof(T) == 2) {
+  if (bf16) {
     if (S < 1 || S > tc::TR) return (int)cudaErrorInvalidValue;
     err = cudaFuncSetAttribute(tc::ray_head_bwd_bf16_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::SMEM);
     if (err != cudaSuccess) return (int)err;
     tc::ray_head_bwd_bf16_kernel<<<nslabs, tc::THREADS, tc::SMEM, s>>>(
-        (const T*)fp, (const T*)d, (const T*)p, (const T*)ct, (const float*)k0d,
-        (const float*)k0p, (const float*)w1, (const float*)b1, (const float*)w2, (float*)dfp,
-        (float*)dd, (float*)dp, (float*)slabs, nrays, S);
+        (const __nv_bfloat16*)fp, (const __nv_bfloat16*)d, (const __nv_bfloat16*)p,
+        (const __nv_bfloat16*)ct, (const float*)k0d, (const float*)k0p, (const float*)w1,
+        (const float*)b1, (const float*)w2, (float*)dfp, (float*)dd, (float*)dp,
+        (float*)slabs, nrays, S);
   } else {
     if (S < 1 || S > BWD_THREADS) return (int)cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(ray_head_bwd_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BWD_SMEM);
+    err = cudaFuncSetAttribute(ray_head_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)BWD_SMEM);
     if (err != cudaSuccess) return (int)err;
-    ray_head_bwd_kernel<T><<<nslabs, BWD_THREADS, BWD_SMEM, s>>>(
-        (const T*)fp, (const T*)d, (const T*)p, (const T*)ct, (const float*)k0d,
+    ray_head_bwd_kernel<<<nslabs, BWD_THREADS, BWD_SMEM, s>>>(
+        (const float*)fp, (const float*)d, (const float*)p, (const float*)ct, (const float*)k0d,
         (const float*)k0p, (const float*)w1, (const float*)b1, (const float*)w2, (float*)dfp,
         (float*)dd, (float*)dp, (float*)slabs, nrays, S);
   }
@@ -837,20 +938,29 @@ int launch_bwd(const void* fp, const void* d, const void* p, const void* ct, con
 // C entry points: return cudaGetLastError() of the launches (0 on success).
 // p and k0p are null without the prior. `grads` (ray_head_slab_len floats)
 // receives dW1 (F*F, (in, out)) | db1 | dw2 | dk0d | dk0p | db2.
-extern "C" int ray_head_fwd_f32(RAY_HEAD_FWD_ARGS) { return launch_fwd<float>(RAY_HEAD_FWD_PASS); }
-extern "C" int ray_head_fwd_bf16(RAY_HEAD_FWD_ARGS) {
-  return launch_fwd<__nv_bfloat16>(RAY_HEAD_FWD_PASS);
-}
-extern "C" int ray_head_bwd_f32(RAY_HEAD_BWD_ARGS) { return launch_bwd<float>(RAY_HEAD_BWD_PASS); }
-extern "C" int ray_head_bwd_bf16(RAY_HEAD_BWD_ARGS) {
-  return launch_bwd<__nv_bfloat16>(RAY_HEAD_BWD_PASS);
-}
+extern "C" int ray_head_fwd_f32(RAY_HEAD_FWD_ARGS) { return launch_fwd(false, RAY_HEAD_FWD_PASS); }
+extern "C" int ray_head_fwd_bf16(RAY_HEAD_FWD_ARGS) { return launch_fwd(true, RAY_HEAD_FWD_PASS); }
+extern "C" int ray_head_bwd_f32(RAY_HEAD_BWD_ARGS) { return launch_bwd(false, RAY_HEAD_BWD_PASS); }
+extern "C" int ray_head_bwd_bf16(RAY_HEAD_BWD_ARGS) { return launch_bwd(true, RAY_HEAD_BWD_PASS); }
 extern "C" long long ray_head_slab_len() { return SLAB; }
 
-// The backward's launch shape, for bf16 (the tensor-core kernel) or f32
-// operands: threads and dynamic shared memory per block, and the blocks (=
-// slabs) for nrays rays of S samples on sms SMs, -1 where the kernel refuses
-// S (a tile holds 128 rows of whole rays).
+// The forward's launch shape, for bf16 (the tensor-core kernel) or f32
+// operands: threads and dynamic shared memory per block, and the blocks for
+// rows = rays x S rows on sms SMs (the grid the forward entry points take).
+extern "C" int ray_head_fwd_threads(int bf16) { return bf16 ? tc::THREADS : FWD_THREADS; }
+extern "C" long long ray_head_fwd_smem_bytes(int bf16) {
+  return (long long)(bf16 ? tc::FWD_SMEM : FWD_SMEM);
+}
+extern "C" long long ray_head_fwd_blocks(long long rows, int sms, int bf16) {
+  const long long per = bf16 ? tc::TR : FWD_THREADS;  // rows a block takes at a time
+  const long long most = (long long)sms * (bf16 ? tc::FWD_BLOCKS_PER_SM : 1);
+  const long long tiles = (rows + per - 1) / per;
+  return tiles < 1 ? 1 : (tiles < most ? tiles : most);
+}
+
+// The backward's launch shape, likewise; the blocks (= slabs) for nrays rays
+// of S samples, -1 where the kernel refuses S (a tile holds 128 rows of
+// whole rays).
 extern "C" int ray_head_bwd_threads(int bf16) { return bf16 ? tc::THREADS : BWD_THREADS; }
 extern "C" long long ray_head_bwd_smem_bytes(int bf16) {
   return (long long)(bf16 ? tc::SMEM : BWD_SMEM);

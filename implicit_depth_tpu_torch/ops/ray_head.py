@@ -43,7 +43,6 @@ from implicit_depth_tpu_torch.ops import cuda_build
 Tensor = torch.Tensor
 
 HIDDEN = 128
-FWD_THREADS = 256
 
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
@@ -52,6 +51,9 @@ _SIGNATURES = {
     **{name: ([_PTR] * 14 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _PTR], ctypes.c_int)
        for name in ("ray_head_bwd_f32", "ray_head_bwd_bf16")},
     "ray_head_slab_len": ([], ctypes.c_longlong),
+    "ray_head_fwd_threads": ([ctypes.c_int], ctypes.c_int),
+    "ray_head_fwd_smem_bytes": ([ctypes.c_int], ctypes.c_longlong),
+    "ray_head_fwd_blocks": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int], ctypes.c_longlong),
     "ray_head_bwd_threads": ([ctypes.c_int], ctypes.c_int),
     "ray_head_bwd_smem_bytes": ([ctypes.c_int], ctypes.c_longlong),
     "ray_head_bwd_blocks": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int],
@@ -123,8 +125,9 @@ def ray_head_fwd(fp: Tensor, depths: Tensor, prior: Optional[Tensor], k0d: Tenso
     cuda_build.check_aligned(ops, "ray_head_fwd")
     out = torch.empty((b, n, s), dtype=fp.dtype, device=fp.device)
     lib = cuda_build.load("ray_head.cu", _SIGNATURES)
-    fn = lib.ray_head_fwd_f32 if fp.dtype == torch.float32 else lib.ray_head_fwd_bf16
-    grid = max(1, min(-(-(b * n * s) // FWD_THREADS), cuda_build.sm_count(fp.device)))
+    low = int(fp.dtype == torch.bfloat16)
+    fn = lib.ray_head_fwd_bf16 if low else lib.ray_head_fwd_f32
+    grid = lib.ray_head_fwd_blocks(b * n * s, cuda_build.sm_count(fp.device), low)
     stream = torch.cuda.current_stream(fp.device).cuda_stream
     with torch.cuda.device(fp.device):
         err = fn(*(_ptr(t) for t in ops), out.data_ptr(), b * n, s, grid, stream)

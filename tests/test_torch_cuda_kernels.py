@@ -238,6 +238,12 @@ RAY_BF16_SHAPES = {
     # 450 tiles of 2 rays: more than two a block on 132 SMs, so that a block
     # carries dW1 and its column sums from one tile to the next
     "multitile": dict(b=3, n=300, s=64),
+    # the BD step's scale-2 launch: 8,196 of the forward's 128-row tiles on
+    # its 2 x 132 blocks
+    "scale2": dict(b=12, n=1366, s=64),
+    # the forward's 128-row tiles (and some warps' 16 rows) split rays; 394
+    # tiles, so some of its 264 blocks walk two
+    "splitrays": dict(b=3, n=700, s=24),
 }
 
 
@@ -247,6 +253,7 @@ def test_ray_head_bf16_kernels_match_plain_versions(cuda, shape, prior):
     """bf16: #3 and the tensor-core #4 against the plain versions, which
     round where the JAX kernel rounds (chip_smoke.check_ray_bf16)."""
     import chip_smoke
+    from implicit_depth_tpu_torch.ops import cuda_build
     from implicit_depth_tpu_torch.ops import ray_head as rh
 
     dims = RAY_BF16_SHAPES[shape]
@@ -260,11 +267,48 @@ def test_ray_head_bf16_kernels_match_plain_versions(cuda, shape, prior):
     torch.cuda.synchronize()
     assert (rh.ray_head_fwd.launches, rh.ray_head_bwd.launches) == (before[0] + 1, before[1] + 1)
     assert out.dtype == torch.bfloat16 and (gk.dp is None) == (not prior)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     if shape == "multitile":
-        assert dims["b"] * dims["n"] // (128 // dims["s"]) > 2 * torch.cuda.get_device_properties(
-            cuda).multi_processor_count
+        assert dims["b"] * dims["n"] // (128 // dims["s"]) > 2 * sms
+    if shape in ("scale2", "splitrays"):  # the forward's blocks walk more than one tile
+        rows = dims["b"] * dims["n"] * dims["s"]
+        blocks = cuda_build.load("ray_head.cu", rh._SIGNATURES).ray_head_fwd_blocks(rows, sms, 1)
+        assert rows // 128 > blocks == 2 * sms
     chip_smoke.check_ray_bf16(f"{shape} {prior}", chip_smoke.ray_outputs(out, gk),
                               chip_smoke.ray_outputs(ref, gr))
+
+
+@pytest.mark.parametrize("prior", [False, True], ids=["noprior", "prior"])
+def test_ray_head_bf16_forward_takes_long_rays(cuda, prior):
+    """The tensor-core forward walks flat rows, so it takes S > 128, held to
+    the forward's bounds of check_ray_bf16; the backward refuses that S."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    ops, ct = chip_smoke.ray_inputs(b=1, n=7, s=200, prior=prior, dtype=torch.bfloat16, seed=5)
+    before = rh.ray_head_fwd.launches, rh.ray_head_bwd.launches
+    with torch.no_grad():
+        out = rh.ray_head_fwd(*ops)
+        ref = rh.ray_head_reference(*ops)
+    torch.cuda.synchronize()
+    chip_smoke.check_ray_bf16(f"S=200 {prior}", {"out": out}, {"out": ref})
+    with pytest.raises(ValueError):
+        rh.ray_head_bwd(ct, *ops[:-1])
+    assert (rh.ray_head_fwd.launches, rh.ray_head_bwd.launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("shape", ["ragged", "splitrays"])
+def test_ray_head_bf16_forward_gives_the_same_bits_twice(cuda, shape):
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    ops, _ = chip_smoke.ray_inputs(**RAY_BF16_SHAPES[shape], prior=True, dtype=torch.bfloat16,
+                                   seed=5)
+    with torch.no_grad():
+        a = rh.ray_head_fwd(*ops)
+        b = rh.ray_head_fwd(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -210,6 +210,26 @@ def test_plain_version_matches_jax_kernel(use_prior):
 
 
 @pytest.mark.parametrize("use_prior", [True, False], ids=["prior", "noprior"])
+@pytest.mark.parametrize("b,n,s", [(1, 7, 200), (2, 37, 13)], ids=["s200", "ragged"])
+def test_plain_forward_matches_jax_kernel_at_card_shapes(b, n, s, use_prior):
+    """The bf16 plain forward, the oracle of the card tests, against the JAX
+    kernel at S > 128 (the tensor-core forward takes any S; the backward
+    refuses it) and at a ragged b * N * S = 962 rows, not a multiple of the
+    forward's 128-row tiles. The tolerance of test_plain_version_matches_jax_kernel."""
+    x = make_inputs(b, n, s, seed=7)
+    args = {k: v.detach() if v is not None else None
+            for k, v in torch_args(x, use_prior, torch.bfloat16).items()}
+    got = ray_head.ray_head_fwd(*(args[k] for k in NAMES))
+    jargs = {k: jnp.asarray(v).astype(jnp.bfloat16 if k in LOW else jnp.float32)
+             for k, v in x.items()}
+    if not use_prior:
+        jargs["prior"] = jargs["k0p"] = None
+    ref = jrh.ray_head_mlp(*(jargs[k] for k in NAMES), interpret=True)
+    assert got.shape == ref.shape == (b, n, s) and got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=2e-2)
+
+
+@pytest.mark.parametrize("use_prior", [True, False], ids=["prior", "noprior"])
 def test_plain_version_matches_xla_chain_f32(use_prior):
     x = make_inputs(2, 37, 13, seed=2)
     args = torch_args(x, use_prior)
