@@ -81,7 +81,28 @@ non-zero:
                 median step time, peak device memory, one profiled step.
 12. reg-train-model: one f32 regression step of a flagship-width DepthNet at
                 128x192, b=1, flip on, GPU against CPU, against stated bounds.
-Then one JSON line with the six kernels' results and, last, the device line.
+13. temporal-main: `evaluate_temporal` with the flagship temporal BDNet
+                (implicit_depth_temporal.yaml: the prior; bf16, seeded random
+                weights) over 10 frames of one synthetic 512x384 scene
+                (synthetic_temporal.yaml, windows of 5) against its 1M-face
+                procedural mesh: frame mode, window mode with device scoring,
+                and window mode timed; score finite, #1 once per frame and
+                #2-#6 never, the two modes' maps within TEMPORAL_MAP_BOUND and
+                their flip counts equal; frame time, forward and raster times,
+                host cores.
+14. temporal-train: `make_bd_train_step` on the flagship temporal BDNet at
+                b=12, N=4096, S=64, bf16 autocast, 6 steps: #1-#4 launch
+                1/1/4/4 per step and every #3/#4 launch takes the prior;
+                losses finite, parameters and BN statistics moved; step time,
+                peak memory, device idle share of one profiled step.
+15. temporal-train-model: phase 8 with the temporal BDNet, both devices
+                given the same augmentation draws.
+16. reg-temporal: the test_reg --temporal_eval path with the flagship
+                DepthNet over 5 frames: #5 once per frame.
+17. raster-scaling: the C++ z-buffer of the 1M-face mesh at 256x192 in
+                subprocesses with OMP_NUM_THREADS 1, 2, 4 and the default.
+Then one JSON line with the six kernels' results (with each kernel's
+launches on every path that runs it) and, last, the device line.
 
 The script imports torch, numpy and the port; nothing of JAX and nothing of
 the JAX package.
@@ -678,6 +699,14 @@ def phase_kernel_ray() -> dict:
                              "bound_ms": fb[0], "bound_by": fb[1]}
             result["bwd"] = {"max_abs_err": bwd_err, "ms": b_ms_k, "plain_ms": b_plain,
                              "bound_ms": bb[0], "bound_by": bb[1]}
+        elif shape is RAY_FLAGSHIP:  # with the prior: the temporal model's variant
+            del ref, gr
+            with torch.no_grad():
+                f_ms = cuda_ms(lambda: rh.ray_head_fwd(*ops))
+            b_ms_k = cuda_ms(lambda: rh.ray_head_bwd(ct, *ops[:-1]))
+            print(f"kernel-ray {label}: forward kernel {f_ms:.3f} ms, backward kernel "
+                  f"{b_ms_k:.3f} ms (medians)", flush=True)
+            result["fwd_prior_ms"], result["bwd_prior_ms"] = f_ms, b_ms_k
         elif shape is RAY_SCALE2:
             with torch.no_grad():
                 f_ms = cuda_ms(lambda: rh.ray_head_fwd(*ops))
@@ -690,11 +719,13 @@ def phase_kernel_ray() -> dict:
     return result
 
 
-def flagship_net(dtype, seed: int = 0):
+def flagship_net(dtype, seed: int = 0, use_prior: bool = False):
+    """The flagship BDNet (implicit_depth.yaml; with use_prior
+    implicit_depth_temporal.yaml), seeded random weights, eval mode."""
     from implicit_depth_tpu_torch.models.bd_net import BDNet
     from implicit_depth_tpu_torch.weights import init_params
 
-    net = BDNet(num_src_views=7, num_depth_bins=64, compute_dtype=dtype)
+    net = BDNet(num_src_views=7, num_depth_bins=64, use_prior=use_prior, compute_dtype=dtype)
     return init_params(net, torch.Generator().manual_seed(seed)).eval()
 
 
@@ -770,15 +801,24 @@ def _launch_counts() -> tuple:
     return tuple(fn.launches for fn in _wrappers())
 
 
+def _prior_launch_counts() -> tuple:
+    """The ray head's launches (#3, #4) that took the prior."""
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+
+    return rh.ray_head_fwd.prior_launches, rh.ray_head_bwd.prior_launches
+
+
 def _zero_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
+        if hasattr(fn, "prior_launches"):
+            fn.prior_launches = 0
 
 
 TRAIN_STEPS = 6
 
 
-def _train_run(batch_size: int) -> dict:
+def _train_run(batch_size: int, use_prior: bool = False) -> dict:
     from implicit_depth_tpu_torch.data.mvs_dataset import BDSamplingConfig, collate
     from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
     from implicit_depth_tpu_torch.train import state
@@ -790,7 +830,7 @@ def _train_run(batch_size: int) -> dict:
     cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
                 for d in collate([ds[i] for i in range(batch_size)]))
     data_s = time.perf_counter() - t0
-    net = flagship_net(torch.bfloat16).cuda()
+    net = flagship_net(torch.bfloat16, use_prior=use_prior).cuda()
     opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
     step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
     watched = {"encoder.conv_stem.weight": net.encoder.conv_stem.weight,
@@ -811,11 +851,12 @@ def _train_run(batch_size: int) -> dict:
         times.append((time.perf_counter() - t1) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
     launches = _launch_counts()
+    prior_launches = _prior_launch_counts()
     moved = {k: not torch.equal(before[k], v.detach()) for k, v in watched.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    return {"b": batch_size, "launches": launches, "times": times, "losses": losses,
-            "moved": moved, "peak_gb": peak_gb, "data_s": data_s,
-            "profile": _profile_step(step, (cur, src))}
+    return {"b": batch_size, "launches": launches, "prior_launches": prior_launches,
+            "times": times, "losses": losses, "moved": moved, "peak_gb": peak_gb,
+            "data_s": data_s, "profile": _profile_step(step, (cur, src))}
 
 
 PORT_KERNELS = ("fused_volume", "ray_head", "warp_planes")  # names of the port's kernels
@@ -898,16 +939,24 @@ def phase_train() -> dict:
 MODEL_LOSS_REL, MODEL_GRAD_L2, MODEL_GRAD_LEAF = 1e-4, 1e-2, 5e-2
 
 
-def phase_train_model() -> None:
+def phase_train_model(use_prior: bool = False) -> None:
+    """One f32 BD step, GPU against CPU, from the same weights and batch;
+    with use_prior (temporal-train-model) the temporal BDNet, both devices
+    given the same augmentation draws (drawn once on the GPU)."""
     import copy
 
+    from implicit_depth_tpu_torch.models.bd_net import draw_prior_noise
     from implicit_depth_tpu_torch.ops import image as image_ops
     from implicit_depth_tpu_torch.train import state
     from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
 
-    net = flagship_net(torch.float32)
+    label = "temporal-train-model" if use_prior else "train-model"
+    net = flagship_net(torch.float32, use_prior=use_prior)
     cur, src = synthetic_bd_batch(batch=1, num_src=7, height=128, width=192, num_rays=256,
                                   samples_per_ray=64, seed=2)
+    noise = (draw_prior_noise(cur["sampled_depths"].shape, torch.float32,
+                              torch.Generator(device="cuda").manual_seed(5))
+             if use_prior else None)
     runs = {}
     for dev in ("cpu", "cuda"):
         n = copy.deepcopy(net).to(dev)
@@ -918,7 +967,8 @@ def phase_train_model() -> None:
         step = state.make_bd_train_step(n, opt, sched, edge_regularisation=False)
         batch = ({k: torch.tensor(v, device=dev) for k, v in cur.items()},
                  {k: torch.tensor(v, device=dev) for k, v in src.items()})
-        losses = step(batch, flip=True)
+        losses = step(batch, flip=True, prior_noise=None if noise is None else
+                      [tuple(u.to(dev) for u in pair) for pair in noise])
         runs[dev] = (float(losses["loss"]),
                      {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()},
                      image_ops.get_edge_mask(batch[0]["gt_depth"]).cpu())
@@ -931,14 +981,14 @@ def phase_train_model() -> None:
     leaf = max(((g_gpu[k] - g).abs().max().item() / g.abs().max().item(), k)
                for k, g in g_cpu.items() if g.abs().max().item() >= 1e-6 * gmax)
     edge_diff = (e_gpu != e_cpu).float().mean().item()
-    print(f"train-model: one f32 train step, flagship-width BDNet at 128x192, b=1, N=256, S=64, "
-          f"flip on, GPU (kernels) vs CPU (plain versions): loss {l_gpu:.6f} vs {l_cpu:.6f} "
+    print(f"{label}: one f32 train step, flagship-width {'temporal ' if use_prior else ''}BDNet at "
+          f"128x192, b=1, N=256, S=64, flip on, GPU (kernels) vs CPU (plain versions): loss {l_gpu:.6f} vs {l_cpu:.6f} "
           f"(relative {loss_rel:.2e}, bound {MODEL_LOSS_REL}); gradients relative L2 "
           f"{grad_l2:.2e} (bound {MODEL_GRAD_L2}), worst parameter {leaf[1]} {leaf[0]:.2e} "
           f"(bound {MODEL_GRAD_LEAF}); edge mask pixels differing {edge_diff:.2e}", flush=True)
     if not (loss_rel <= MODEL_LOSS_REL and grad_l2 <= MODEL_GRAD_L2
             and leaf[0] <= MODEL_GRAD_LEAF and edge_diff <= 1e-2):
-        raise AssertionError("train-model: the GPU train step disagrees with the CPU one")
+        raise AssertionError(f"{label}: the GPU train step disagrees with the CPU one")
 
 # ---------------------------------------------------------------- the warp
 
@@ -1289,6 +1339,201 @@ def phase_reg_train_model() -> None:
         raise AssertionError("reg-train-model: the GPU regression step disagrees with the CPU one")
 
 
+# ------------------------------------------------------- the temporal slice
+
+TEMPORAL_FRAMES = 10  # one scene's frames in temporal-main: two plane windows
+# synthetic_temporal.yaml: 512x384 images (256x192 maps), 8 views, windows
+# of eval_length 5 frames, warmup 1
+TEMPORAL = dict(image_height=384, image_width=512, num_views=8, eval_length=5, warmup=1)
+# Frame mode and window mode run the same forwards on the same inputs in the
+# same order (the window mode only defers the host's reads), so their
+# per-frame sigmoid maps agree to this bound (measured equal) and the flips
+# counted by the C++ host sampling and by the device scorer are equal.
+TEMPORAL_MAP_BOUND = 1e-6
+
+
+def phase_temporal_main() -> dict:
+    """evaluate_temporal with the flagship temporal BDNet (bf16, seeded
+    weights, use_prior) over 10 frames of one synthetic scene against its
+    1M-face procedural mesh: frame mode (host C++ scoring), window mode with
+    device scoring, and window mode again without collecting the maps (its
+    times)."""
+    import os
+
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.eval.temporal_driver import evaluate_temporal
+
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(num_frames=TEMPORAL_FRAMES + TEMPORAL["num_views"] - 1,
+                          num_views=TEMPORAL["num_views"], image_height=TEMPORAL["image_height"],
+                          image_width=TEMPORAL["image_width"], split="val", get_bd_info=True)
+    # the dataset keeps what it renders: render every frame now, so that no
+    # mode pays the synthetic renderer (~100 ms a frame, not a decoder's cost)
+    for i in range(ds.num_frames):
+        ds.get_frame("scene0", str(i))
+    mesh = SyntheticDataset.get_gt_mesh_path("", "val", "scene0")
+    setup_s = time.perf_counter() - t0
+    net = flagship_net(torch.bfloat16, use_prior=True).cuda().cast_to_compute_dtype()
+    kw = dict(eval_length=TEMPORAL["eval_length"], warmup=TEMPORAL["warmup"],
+              height=ds.depth_height, width=ds.depth_width)
+    runs = {}
+    for mode, extra in (("frame", dict(collect_preds=True)),
+                        ("window", dict(use_scan=True, device_scoring=True, collect_preds=True)),
+                        ("window-timed", dict(use_scan=True))):
+        _zero_launch_counts()
+        res = evaluate_temporal(net, {"scene0": ds}, {"scene0": mesh}, **kw, **extra)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        n = res["n_frames"]
+        if n != TEMPORAL_FRAMES or counts != (n, 0, 0, 0, 0, 0):
+            raise AssertionError(f"temporal-main {mode}: {n} frames, kernel launches #1-#6 "
+                                 f"{counts}, expected {(TEMPORAL_FRAMES, 0, 0, 0, 0, 0)}")
+        if not np.isfinite(res["temporal_score"]) or res["total_verts"] <= 0:
+            raise AssertionError(f"temporal-main {mode}: temporal_score "
+                                 f"{res['temporal_score']}, {res['total_verts']} vertices")
+        runs[mode] = res
+    frame, window = runs["frame"], runs["window"]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(frame["preds"], window["preds"]))
+    if len(window["preds"]) != TEMPORAL_FRAMES or diff > TEMPORAL_MAP_BOUND or \
+            (frame["total_diffs"], frame["total_verts"]) != (window["total_diffs"],
+                                                              window["total_verts"]):
+        raise AssertionError(f"temporal-main: window mode vs frame mode: maps differ by {diff:.3e} "
+                             f"(bound {TEMPORAL_MAP_BOUND}), flips/vertices "
+                             f"{window['total_diffs']}/{window['total_verts']} vs "
+                             f"{frame['total_diffs']}/{frame['total_verts']}")
+    occluded = float(np.mean([(p > 0.5).mean() for p in frame["preds"]]))
+    print(f"temporal-main: evaluate_temporal, flagship temporal BDNet (EfficientNetV2-S, K=7, "
+          f"D=64, prior, bf16, seeded random weights), {TEMPORAL_FRAMES} frames of one synthetic "
+          f"512x384 scene, windows of {TEMPORAL['eval_length']}, 1M-face mesh (data and mesh "
+          f"{setup_s:.1f} s): temporal_score {frame['temporal_score']:.4f} "
+          f"({frame['total_diffs']:.0f} flips / {frame['total_verts']} vertices, equal in window "
+          f"mode with device scoring; maps within {diff:.2e}, share occluded {occluded:.3f}); "
+          f"launches #1-#6 per mode {(TEMPORAL_FRAMES, 0, 0, 0, 0, 0)}; host cores "
+          f"{os.cpu_count()}", flush=True)
+    out = {}
+    for mode, res in runs.items():
+        ft = np.asarray(res["frame_times"]) * 1e3
+        print(f"temporal-main {mode} mode: frame time median {np.median(ft):.2f} ms "
+              f"({res['frames_per_sec']:.2f} frames/s; all {', '.join(f'{t:.1f}' for t in ft)}), "
+              f"forward {res['forward_ms']:.2f} ms (CUDA events, median), raster "
+              f"{res['raster_ms']:.2f} ms and staging {res['stage_ms']:.2f} ms per frame (host, "
+              f"medians)", flush=True)
+        out[mode] = {"frame_ms": float(np.median(ft)), "forward_ms": res["forward_ms"],
+                     "raster_ms": res["raster_ms"], "stage_ms": res["stage_ms"]}
+    out["launches"] = TEMPORAL_FRAMES
+    return out
+
+
+def phase_temporal_train() -> dict:
+    """6 steps of make_bd_train_step on the flagship temporal BDNet at b=12:
+    #1-#4 launch 1/1/4/4 per step, every ray-head launch with the prior."""
+    res = _train_run(12, use_prior=True)
+    n = TRAIN_STEPS
+    if res["launches"] != (n, n, 4 * n, 4 * n, 0, 0) or res["prior_launches"] != (4 * n, 4 * n):
+        raise AssertionError(f"temporal-train: kernel launches #1-#6 {res['launches']}, with the "
+                             f"prior #3/#4 {res['prior_launches']} over {n} steps, expected "
+                             f"{(n, n, 4 * n, 4 * n, 0, 0)} and {(4 * n, 4 * n)}")
+    if not all(np.isfinite(v) for ls in res["losses"] for v in ls.values()):
+        raise AssertionError(f"temporal-train: non-finite losses {res['losses']}")
+    if not all(res["moved"].values()):
+        raise AssertionError(f"temporal-train: parameters or BN statistics did not move: "
+                             f"{res['moved']}")
+    step_ms = float(np.median(res["times"][1:]))
+    prof = res["profile"]
+    print(f"temporal-train: {n} steps of make_bd_train_step, flagship temporal BDNet (prior, "
+          f"bf16 autocast, f32 params, seeded random weights), b={res['b']} synthetic 512x384 "
+          f"tuples, N=4096, S=64 (data {res['data_s']:.1f} s): train_step_ms {step_ms:.1f} "
+          f"(median of steps 2-{n}; all {', '.join(f'{t:.1f}' for t in res['times'])}), peak "
+          f"device memory {res['peak_gb']:.2f} GiB, launches #1-#6 {res['launches']}, with the "
+          f"prior #3/#4 {res['prior_launches']}, loss {res['losses'][0]['loss']:.4f} -> "
+          f"{res['losses'][-1]['loss']:.4f}; one more step under torch.profiler: wall "
+          f"{prof['wall_ms']:.1f} ms, device kernels {prof['device_ms']:.1f} ms (device idle "
+          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time, "
+          "then the port's kernels below them:", flush=True)
+    for ms, count, name in prof["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+    return {"launches": res["launches"], "train_step_ms": step_ms, "peak_gb": res["peak_gb"]}
+
+
+def phase_reg_temporal() -> dict:
+    """cli/test_reg.py's temporal path (cli.test_bd.run_temporal with
+    regression=True) with the flagship DepthNet, 5 frames of the synthetic
+    temporal config: kernel #5 once per frame."""
+    from implicit_depth_tpu_torch.cli.test_bd import run_temporal
+    from implicit_depth_tpu_torch.config import Config
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.train.loop import build_dataset
+
+    frames = 5
+    cfg = Config(dataset="synthetic", split="val", image_height=TEMPORAL["image_height"],
+                 image_width=TEMPORAL["image_width"], model_num_views=TEMPORAL["num_views"],
+                 eval_length=TEMPORAL["eval_length"], warmup=TEMPORAL["warmup"],
+                 max_frames=frames)
+    ds = build_dataset(cfg, cfg.split, "bd", limit_to_scan_id="scene0")
+    for i in range(ds.num_frames):  # render before timing, as temporal-main
+        ds.get_frame("scene0", str(i))
+    net = reg_net(torch.bfloat16).cuda().eval().cast_to_compute_dtype()
+    _zero_launch_counts()
+    res = run_temporal(cfg, net, {"scene0": ds}, SyntheticDataset, regression=True)
+    counts = _launch_counts()
+    if res["n_frames"] != frames or counts != (0, 0, 0, 0, frames, 0) or \
+            not np.isfinite(res["temporal_score"]):
+        raise AssertionError(f"reg-temporal: {res['n_frames']} frames, launches #1-#6 {counts}, "
+                             f"expected {(0, 0, 0, 0, frames, 0)}, temporal_score "
+                             f"{res['temporal_score']}")
+    ft = np.asarray(res["frame_times"]) * 1e3
+    print(f"reg-temporal: the test_reg --temporal_eval path, flagship DepthNet (bf16, seeded "
+          f"random weights), {frames} frames: temporal_score {res['temporal_score']:.4f}, frame "
+          f"time median {np.median(ft):.2f} ms, forward {res['forward_ms']:.2f} ms, raster "
+          f"{res['raster_ms']:.2f} ms per frame, launches #1-#6 {counts}", flush=True)
+    return {"launches": frames, "frame_ms": float(np.median(ft)), "forward_ms": res["forward_ms"]}
+
+
+RASTER_THREADS = (1, 2, 4)
+_RASTER_TIMING = r"""
+import sys, time
+import numpy as np
+from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+from implicit_depth_tpu_torch.eval import rasterizer as ras
+ds = SyntheticDataset(num_frames=8, num_views=8, image_height=384, image_width=512, split="val")
+frame = ds.get_frame("scene0", 4)
+verts, faces = ras.load_ply(sys.argv[1])
+args = (verts, faces, frame["cam_T_world"], frame["K_s0"], ds.depth_height, ds.depth_width)
+ras.rasterize_mesh_depth(*args)
+times = []
+for _ in range(7):
+    t0 = time.perf_counter()
+    ras.rasterize_mesh_depth(*args)
+    times.append((time.perf_counter() - t0) * 1e3)
+print(np.median(times))
+"""
+
+
+def phase_raster_scaling() -> dict:
+    """rasterize_mesh_depth on the 1M-face procedural mesh at 256x192, in
+    subprocesses with OMP_NUM_THREADS 1, 2, 4 and the host's default: the
+    median of 7 calls each."""
+    import os
+
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+
+    mesh = SyntheticDataset.get_gt_mesh_path("", "val", "scene0")
+    out = {}
+    for threads in RASTER_THREADS + (None,):
+        env = dict(os.environ)
+        if threads is None:
+            env.pop("OMP_NUM_THREADS", None)
+        else:
+            env["OMP_NUM_THREADS"] = str(threads)
+        proc = subprocess.run([sys.executable, "-c", _RASTER_TIMING, mesh], env=env,
+                              capture_output=True, text=True, check=True, timeout=300)
+        out[str(threads or f"default ({os.cpu_count()} cores)")] = float(
+            proc.stdout.split()[-1])
+    print("raster-scaling: rasterize_mesh_depth, 1M-face mesh, 256x192, median of 7 calls: "
+          + ", ".join(f"OMP_NUM_THREADS={k} {v:.2f} ms" for k, v in out.items()), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU only",
@@ -1311,6 +1556,11 @@ def main() -> int:
     phase_reg_main()
     reg_res = phase_reg_train()
     phase_reg_train_model()
+    temporal_res = phase_temporal_main()
+    temporal_train_res = phase_temporal_train()
+    phase_train_model(use_prior=True)
+    reg_temporal_res = phase_reg_temporal()
+    phase_raster_scaling()
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -1331,6 +1581,16 @@ def main() -> int:
         "library_ms": r.get("library_ms")} for name, source, replaces, r, launches in rows]
     kernels[0]["train_shape"] = kern["train bf16"]  # #1 at the train step's b=12
     kernels[1]["train_shape"] = kern_bwd["train bf16"]  # #2 at the train step's b=12
+    # launches on each main path that runs the kernel
+    for i, row in enumerate(kernels[:4]):
+        row["paths"] = {"train": train_res["launches"][i],
+                        "temporal-train": temporal_train_res["launches"][i]}
+    kernels[0]["paths"]["temporal-main"] = temporal_res["launches"]
+    kernels[2]["prior_ms"] = kern_ray["fwd_prior_ms"]  # the variant with the prior
+    kernels[3]["prior_ms"] = kern_ray["bwd_prior_ms"]
+    kernels[4]["paths"] = {"reg-train": reg_res["launches"][4],
+                           "reg-temporal": reg_temporal_res["launches"]}
+    kernels[5]["paths"] = {"reg-train": reg_res["launches"][5]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

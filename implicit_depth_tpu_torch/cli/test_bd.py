@@ -1,11 +1,18 @@
-"""Dense occlusion IoU evaluation with the PyTorch port (counterpart of
-scripts/test_bd.py, dense branch): per-scene 8-plane queries, per-plane
-thresholds, all/surface/boundary IoU tables and the model time.
+"""Occlusion evaluation with the PyTorch port (counterpart of
+scripts/test_bd.py): per-scene 8-plane queries, per-plane thresholds,
+all/surface/boundary IoU tables and the model time; or, with
+--temporal_eval, the temporal (flicker) score over each scene's frames
+against its GT mesh (eval/temporal_driver.py; --temporal_scan for the window
+loop), single process.
 
     python -m implicit_depth_tpu_torch.cli.test_bd \
         --config_file configs/models/implicit_depth.yaml \
         --data_config_file configs/data/scannet_default_test.yaml \
         --load_weights_from_checkpoint weights.pt [--device cuda]
+    python -m implicit_depth_tpu_torch.cli.test_bd --temporal_eval \
+        --config_file configs/models/implicit_depth_temporal.yaml \
+        --data_config_file configs/data/synthetic_temporal.yaml \
+        --load_weights_from_checkpoint weights.pt
 
 The checkpoint is the port's state_dict (`torch.save`), e.g. from
 implicit_depth_tpu_torch.weights.state_dict_from_flax. The device defaults
@@ -41,9 +48,12 @@ def main(argv=None) -> dict:
     load_state_dict(net, state, optional_prefixes=TRAIN_ONLY_PREFIXES)
     net = net.to(device).eval().cast_to_compute_dtype()
 
-    _, scans = get_dataset(cfg.dataset, cfg.dataset_scan_split_file, cfg.single_debug_scan_id)
+    ds_cls, scans = get_dataset(cfg.dataset, cfg.dataset_scan_split_file,
+                                cfg.single_debug_scan_id)
     datasets = {scan: build_dataset(cfg, cfg.split, limit_to_scan_id=scan, pass_frame_id=True)
                 for scan in (scans or ["scene0"])}
+    if cfg.temporal_eval:
+        return run_temporal(cfg, net, datasets, ds_cls)
 
     planes = np.linspace(1.5, 5.0, 8, dtype=np.float32)
     thr = [0.5, 0.4] + [0.3] * 6 if cfg.use_validation_thresholds else [0.5] * 8
@@ -64,6 +74,27 @@ def main(argv=None) -> dict:
                                       print_running_metrics=False)
     print(f"model_time: {results['model_time_ms']:.2f} ms/frame")
     return results
+
+
+def run_temporal(cfg, net, datasets: dict, ds_cls, regression: bool = False) -> dict:
+    """The temporal score of `net` over `datasets`, the meshes from
+    ds_cls.get_gt_mesh_path; prints it with the flips, vertices and rate."""
+    from implicit_depth_tpu_torch.eval.temporal_driver import evaluate_temporal
+
+    meshes = {scan: ds_cls.get_gt_mesh_path(cfg.dataset_path, cfg.split, scan)
+              for scan in datasets}
+    result = evaluate_temporal(
+        net, datasets, meshes, eval_length=cfg.eval_length, warmup=cfg.warmup,
+        frame_multiplier=cfg.eval_frame_multiplier,
+        sigmoid_multiplier=cfg.bd_sigmoid_multiplier, height=cfg.depth_height,
+        width=cfg.depth_width, max_frames_per_scene=cfg.max_frames, regression=regression,
+        use_scan=cfg.temporal_scan)
+    ft = ", ".join(f"{t:.3f}" for t in result["frame_times"])
+    print(f"temporal_score: {result['temporal_score']:.4f} "
+          f"({result['total_diffs']:.0f} flips / {result['total_verts']} verts), "
+          f"{result['frames_per_sec']:.2f} frames/s (median) over {result['n_frames']} frames "
+          f"[{ft}]")
+    return result
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Depth-regression evaluation with the PyTorch port (counterpart of the
-non-temporal branch of scripts/test_reg.py): per-frame depth metrics of
-DepthNet, optionally at native resolution (--high_res_validation) and as
-plane IoU of the regressed depth (--regression_plane_eval), and the model
-time.
+"""Depth-regression evaluation with the PyTorch port (counterpart of
+scripts/test_reg.py): per-frame depth metrics of DepthNet, optionally at
+native resolution (--high_res_validation) and as plane IoU of the regressed
+depth (--regression_plane_eval), and the model time; or, with
+--temporal_eval, the temporal score of the occlusion map (rendered depth <
+predicted depth), single process.
 
     python -m implicit_depth_tpu_torch.cli.test_reg \
         --config_file configs/models/regression_model.yaml \
@@ -13,8 +14,7 @@ The checkpoint is the port's state_dict (`torch.save`), e.g. from
 implicit_depth_tpu_torch.weights.state_dict_from_flax, or a checkpoint of
 cli/train.py. The device defaults to cuda; pass --device cpu to run the
 plain versions of the kernels on the CPU. The averages go to
-<output_base_path>/<name>/scores/depth_metrics.json. Temporal regression
-eval (--temporal_eval) is not ported yet.
+<output_base_path>/<name>/scores/depth_metrics.json.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import os
 
 import torch
 
+from implicit_depth_tpu_torch.cli.test_bd import run_temporal
 from implicit_depth_tpu_torch.config import parse_config
 from implicit_depth_tpu_torch.data.registry import get_dataset
 from implicit_depth_tpu_torch.eval.depth_eval import evaluate_depth
@@ -35,8 +36,6 @@ def main(argv=None) -> dict:
     # f32 stays f32 (the JAX package's precision): no TF32 in convs or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if cfg.temporal_eval:
-        raise SystemExit("temporal regression eval is not ported yet")
     if not cfg.load_weights_from_checkpoint:
         raise SystemExit("--load_weights_from_checkpoint is required")
     net = build_net(cfg, "regression")
@@ -44,7 +43,12 @@ def main(argv=None) -> dict:
     load_state_dict(net, state.get("model", state))
     net = net.to(device).eval().cast_to_compute_dtype()
 
-    _, scans = get_dataset(cfg.dataset, cfg.dataset_scan_split_file, cfg.single_debug_scan_id)
+    ds_cls, scans = get_dataset(cfg.dataset, cfg.dataset_scan_split_file,
+                                cfg.single_debug_scan_id)
+    if cfg.temporal_eval:
+        datasets = {scan: build_dataset(cfg, cfg.split, "bd", limit_to_scan_id=scan)
+                    for scan in (scans or ["scene0"])}
+        return run_temporal(cfg, net, datasets, ds_cls, regression=True)
     kind = "bd" if cfg.regression_plane_eval else "regression"
     datasets = {scan: build_dataset(cfg, cfg.split, kind, limit_to_scan_id=scan)
                 for scan in (scans or ["scene0"])}

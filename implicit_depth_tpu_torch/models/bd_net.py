@@ -9,20 +9,26 @@ CUDA kernels on CUDA tensors, their plain versions on CPU tensors; the
 training forward through the differentiable `fused_train`), CVEncoder ->
 DecoderPP, and the query heads: the scale-0 head once per rendered-depth
 plane (eval), or every scale at sparse rays through `factored` and
-ops/ray_head.py (training). The prior, the zero/dot volumes, the FPN
-matching encoder, the skip decoder and depth-by-bisection are not ported
-yet (train/loop.py::build_net refuses configs that need them).
+ops/ray_head.py (training). With `use_prior` the heads take one more input,
+the temporal prior: in eval the previous frame's prediction warped through
+the rendered depth (`sample_prior`, -1 where there is none), in training
+the augmented ground-truth occupancy (`augment_prior`, from uniform draws
+the caller hands in). The zero/dot volumes, the FPN matching encoder, the
+skip decoder and depth-by-bisection are not ported yet
+(train/loop.py::build_net refuses configs that need them).
 
 Flip augmentation follows the reference: images flipped, matching features
 unflipped before the volume, the volume re-flipped before the CV encoder,
 decoder features unflipped at the end.
 
 Batch dicts use the JAX package's NHWC layout (see its module docstring);
-the conv stacks run in NCHW. Pose products and the volume operands are f32
-at full precision, also under autocast.
+the conv stacks run in NCHW. Pose products, the volume operands and the
+prior's geometry are f32 at full precision, also under autocast.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -43,6 +49,37 @@ SCALES = (0, 1, 2, 3)
 TRAIN_ONLY_PREFIXES = tuple(f"binary_mlp.s{s}_" for s in SCALES[1:])
 
 
+def prior_noise_shapes(depths_shape) -> list:
+    """The shape of each scale's prior, (b, N_s, S), for sampled depths of
+    shape (b, N, S): scale s takes every (s+1)-th ray."""
+    b, n, s = depths_shape
+    return [(b, -(-n // (scale + 1)), s) for scale in SCALES]
+
+
+def draw_prior_noise(depths_shape, dtype: torch.dtype, generator: torch.Generator) -> list:
+    """The uniform draws of the training prior's augmentation, per scale a
+    pair (offset, flip) of U[0, 1) tensors of prior_noise_shapes(...) in
+    `dtype`, on the generator's device."""
+    return [tuple(torch.rand(shape, generator=generator, dtype=dtype,
+                             device=generator.device) for _ in range(2))
+            for shape in prior_noise_shapes(depths_shape)]
+
+
+def augment_prior(sub_depths: Tensor, sub_target: Tensor, u_offset: Tensor,
+                  u_flip: Tensor) -> Tensor:
+    """The training prior of one scale from its draws, in the draws' dtype
+    (the JAX package's run_mlp_train): the ground-truth occupancy
+    (sub_depths < sub_target), moved toward 0.5 by u_offset * 0.45, flipped
+    to 1 - prior where u_flip < 0.5, and -1 (no prior) where u_flip < 0.25.
+    sub_depths (b, N_s, S), sub_target (b, N_s)."""
+    dt = u_offset.dtype
+    prior = (sub_depths < sub_target[..., None]).to(dt)
+    offset = u_offset * 0.45
+    prior = torch.where(prior == 1.0, prior - offset, prior + offset)
+    prior = torch.where(u_flip < 0.5, 1.0 - prior, prior)
+    return torch.where(u_flip < 0.25, torch.full_like(prior, -1.0), prior)
+
+
 class BDNet(nn.Module):
     def __init__(
         self,
@@ -53,10 +90,12 @@ class BDNet(nn.Module):
         num_src_views: int = 7,
         min_matching_depth: float = 0.25,
         max_matching_depth: float = 5.0,
+        use_prior: bool = False,
         compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.matching_scale = matching_scale
+        self.use_prior = use_prior
         self.num_depth_bins = num_depth_bins
         self.min_matching_depth = min_matching_depth
         self.max_matching_depth = max_matching_depth
@@ -74,7 +113,8 @@ class BDNet(nn.Module):
                                             matching_dim=matching_feature_dims)
         self.cv_encoder = CVEncoder(num_depth_bins, enc_ch[matching_scale:])
         self.decoder = DecoderPP(enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs))
-        self.binary_mlp = BinaryMLPNetwork([NUM_CH_DEC[s] + 1 for s in SCALES])
+        # fc0 rows: the query depth, the features [, the prior]
+        self.binary_mlp = BinaryMLPNetwork([NUM_CH_DEC[s] + 1 + int(use_prior) for s in SCALES])
 
     def cast_to_compute_dtype(self) -> "BDNet":
         """Casts the conv and dense stacks to the compute dtype. The volume
@@ -132,12 +172,17 @@ class BDNet(nn.Module):
         return {"features": dec, "lowest_cost": lowest}
 
     # ---------------- query heads ----------------
-    def run_mlp_train(self, cur_data: dict, features: dict) -> dict:
+    def run_mlp_train(self, cur_data: dict, features: dict,
+                      prior_noise: Optional[list] = None) -> dict:
         """Sparse ray queries at every scale: gt depth sampled bilinearly at
         the rays (sampled_rays (b, N, 2) in gt-depth pixels), rays and
         sample depths (b, N, S) taken every (s+1)-th at scale s, the
-        decoder features sampled at them and fed to `factored`. Returns
-        target_depth (b, N), query_depth (b, N, S), pred_s (b, N_s, S)."""
+        decoder features sampled at them and fed to `factored`. With
+        use_prior, prior_noise (draw_prior_noise) makes each scale's
+        augmented prior in the features' dtype. Returns target_depth (b, N),
+        query_depth (b, N, S), pred_s (b, N_s, S)."""
+        if self.use_prior and prior_noise is None:
+            raise ValueError("a net with use_prior trains on prior_noise (draw_prior_noise)")
         gt_depth = cur_data["gt_depth"]
         hg, wg = gt_depth.shape[1], gt_depth.shape[2]
         rays = cur_data["sampled_rays"]
@@ -145,37 +190,82 @@ class BDNet(nn.Module):
         grid = torch.stack([(rays[..., 0] / wg - 0.5) * 2.0,
                             (rays[..., 1] / hg - 0.5) * 2.0], dim=-1)  # (b, N, 2)
         target = grid_sample(gt_depth, grid[:, :, None], mode="bilinear")[:, :, 0, 0]
-        feats, sub_depths = [], []
+        feats, sub_depths, priors = [], [], []
         for scale in SCALES:
             feat = features[scale].permute(0, 2, 3, 1)              # NHWC
             sub_grid = grid[:, :: scale + 1]
             feats.append(grid_sample(feat, sub_grid[:, :, None], mode="bilinear")[:, :, 0])
             sub_depths.append(depths[:, :: scale + 1])
+            if self.use_prior:
+                u_offset, u_flip = (u.to(feats[-1].dtype) for u in prior_noise[scale])
+                priors.append(augment_prior(sub_depths[-1], target[:, :: scale + 1],
+                                            u_offset, u_flip))
         out = {"target_depth": target, "query_depth": depths}
-        out.update(self.binary_mlp.factored(feats, sub_depths))
+        out.update(self.binary_mlp.factored(feats, sub_depths,
+                                            priors if self.use_prior else None))
         return out
+
+    def sample_prior(self, rendered_depth: Tensor, prior_prediction: Tensor,
+                     cam_to_world: Tensor, prior_world_to_cam: Tensor, K: Tensor,
+                     invK: Tensor) -> Tensor:
+        """The previous frame's prediction warped into this frame through
+        the rendered depth: each pixel's rendered point, projected into the
+        prior camera, samples prior_prediction (nearest); -1 where the
+        rendered depth is <= 0 or the point lies behind the prior camera.
+        rendered_depth, prior_prediction (b, h, w, 1) -> (b, h, w, 1) f32."""
+        b, h, w = rendered_depth.shape[:3]
+        with torch.autocast(rendered_depth.device.type, enabled=False):
+            cur_to_prior = torch.einsum("bij,bjk->bik", prior_world_to_cam.float(),
+                                        cam_to_world.float())
+            pts = geometry.backproject_depth(rendered_depth[..., 0].float(), invK.float())
+            cam = geometry.project_points(pts.reshape(b, -1, 4), K.float(), cur_to_prior)
+            uv = cam[..., :2].reshape(b, h, w, 2)
+            grid = torch.stack([(uv[..., 0] / w - 0.5) * 2, (uv[..., 1] / h - 0.5) * 2], -1)
+            sampled = grid_sample(prior_prediction.float(), grid, mode="nearest")
+            z = cam[..., 2].reshape(b, h, w, 1)
+            valid = (rendered_depth > 0) & (z > 0)
+            return torch.where(valid, sampled, torch.full_like(sampled, -1.0))
 
     def run_mlp_val(self, cur_data: dict, features: dict, rendered_depth: Tensor) -> Tensor:
         """Dense queries at scale 0. rendered_depth (b, h0, w0, 1) ->
-        logits (b, h0, w0)."""
+        logits (b, h0, w0). With use_prior the prior is
+        sample_prior(cur_data["rendered_depth_full"], ...) where
+        cur_data["prior_prediction"] is given, else -1 everywhere."""
         feat = features[0].permute(0, 2, 3, 1)                        # (b, h0, w0, c)
-        x = torch.cat([rendered_depth.to(feat.dtype), feat], dim=-1)
-        return self.binary_mlp([x], max_scale_only=True)["pred_0"][..., 0]
+        parts = [rendered_depth.to(feat.dtype), feat]
+        if self.use_prior:
+            if cur_data.get("prior_prediction") is not None:
+                prior = self.sample_prior(
+                    cur_data["rendered_depth_full"], cur_data["prior_prediction"],
+                    cur_data["world_T_cam"], cur_data["prior_cam_T_world"],
+                    cur_data["K_s0"], cur_data["invK_s0"])
+            else:
+                prior = torch.full_like(rendered_depth, -1.0)
+            parts.append(prior.to(feat.dtype))
+        return self.binary_mlp([torch.cat(parts, dim=-1)], max_scale_only=True)["pred_0"][..., 0]
 
     # ---------------- entry points ----------------
-    def forward(self, cur_data: dict, src_data: dict, flip: bool = False) -> dict:
+    def forward(self, cur_data: dict, src_data: dict, flip: bool = False,
+                prior_noise: Optional[list] = None) -> dict:
         """Train forward: trunk with the differentiable volume + sparse ray
-        queries. Returns target_depth, query_depth, pred_0..3, lowest_cost."""
+        queries (with use_prior, on the draws prior_noise). Returns
+        target_depth, query_depth, pred_0..3, lowest_cost."""
         t = self.trunk(cur_data, src_data, flip, train=True)
-        out = self.run_mlp_train(cur_data, t["features"])
+        out = self.run_mlp_train(cur_data, t["features"], prior_noise)
         out["lowest_cost"] = t["lowest_cost"]
         return out
 
     def forward_val(self, cur_data: dict, src_data: dict) -> dict:
         """Dense queries for every rendered-depth channel:
-        {"pred_0": (b, h0, w0, P) logits, "lowest_cost": (b, h, w)}."""
+        {"pred_0": (b, h0, w0, P) logits, "lowest_cost": (b, h, w)}. With
+        use_prior, cur_data may hold prior_prediction (b, h0, w0, 1) and
+        prior_cam_T_world (b, 4, 4); each channel warps the prior through
+        its own rendered depth."""
         t = self.trunk(cur_data, src_data)
         rendered = cur_data["rendered_depth"]
-        logits = [self.run_mlp_val(cur_data, t["features"], rendered[..., i: i + 1])
-                  for i in range(rendered.shape[-1])]
+        logits = []
+        for i in range(rendered.shape[-1]):
+            q = rendered[..., i: i + 1]
+            logits.append(self.run_mlp_val(dict(cur_data, rendered_depth_full=q),
+                                           t["features"], q))
         return {"pred_0": torch.stack(logits, dim=-1), "lowest_cost": t["lowest_cost"]}

@@ -15,7 +15,9 @@ computes once per ray. The kernels are csrc/ray_head.cu; this module holds
   backward is `ray_head_bwd`;
 - `ray_head_fwd` / `ray_head_bwd`: dispatch wrappers. A CPU tensor goes to
   the plain version; a CUDA tensor launches the kernel or raises. Each has a
-  `launches` count of its kernel launches and nothing else;
+  `launches` count of its kernel launches and nothing else, and a
+  `prior_launches` count of those launches that took the prior (the backward
+  then returns dp);
 - `ray_head_reference` / `ray_head_bwd_reference`: the plain versions, the
   backward written out.
 
@@ -133,10 +135,11 @@ def ray_head_fwd(fp: Tensor, depths: Tensor, prior: Optional[Tensor], k0d: Tenso
         err = fn(*(_ptr(t) for t in ops), out.data_ptr(), b * n, s, grid, stream)
     cuda_build.check(err, "ray_head_fwd")
     ray_head_fwd.launches += 1
+    ray_head_fwd.prior_launches += prior is not None
     return out
 
 
-ray_head_fwd.launches = 0
+ray_head_fwd.launches = ray_head_fwd.prior_launches = 0
 
 
 def _rounding(dtype: torch.dtype):
@@ -222,6 +225,7 @@ def ray_head_bwd(ct: Tensor, fp: Tensor, depths: Tensor, prior: Optional[Tensor]
                  slabs.data_ptr(), grads.data_ptr(), nrays, s, nslabs, stream)
     cuda_build.check(err, "ray_head_bwd")
     ray_head_bwd.launches += 1
+    ray_head_bwd.prior_launches += prior is not None
     F_ = HIDDEN
     dw1, db1, dw2, dk0d, dk0p, db2 = torch.split(grads[:F_ * F_ + 4 * F_ + 1],
                                                  (F_ * F_, F_, F_, F_, F_, 1))
@@ -230,7 +234,7 @@ def ray_head_bwd(ct: Tensor, fp: Tensor, depths: Tensor, prior: Optional[Tensor]
                         db1=db1, dw2=dw2.view(F_, 1), db2=db2)
 
 
-ray_head_bwd.launches = 0
+ray_head_bwd.launches = ray_head_bwd.prior_launches = 0
 
 
 def ray_head_bwd_reference(ct: Tensor, fp: Tensor, depths: Tensor, prior: Optional[Tensor],

@@ -7,9 +7,11 @@ fit wires: dataset -> the port's BatchLoader -> the kind's train step ->
 log scalars every log_interval steps -> validation every val_interval steps
 (BD: `forward_val` + `legacy_and_new_iou`; regression: `regression_losses`
 of the eval-mode forward) -> `torch.save` of {model, optimizer, step} at
-each validation and at the end. Not ported yet: the CheckpointManager's
-top-k and resume with the data-order skip, async writes, the
-ExperimentLogger and multi-process data parallelism.
+each validation and at the end. A config's lazy_load_weights_from_checkpoint
+(a port state_dict, e.g. of a regression model) seeds every entry whose
+name and shape match (weights.lazy_load_state_dict). Not ported yet: the
+CheckpointManager's top-k and resume with the data-order skip, async
+writes, the ExperimentLogger and multi-process data parallelism.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from implicit_depth_tpu_torch.models.depth_net import DepthNet
 from implicit_depth_tpu_torch.ops import image as image_ops
 from implicit_depth_tpu_torch.train import losses as loss_lib
 from implicit_depth_tpu_torch.train import state as state_lib
-from implicit_depth_tpu_torch.weights import init_params, load_state_dict
+from implicit_depth_tpu_torch.weights import init_params, lazy_load_state_dict, load_state_dict
 
 KINDS = ("bd", "regression")
 
@@ -56,13 +58,12 @@ def build_net(cfg: Config, kind: str = "bd"):
         return DepthNet(feature_volume_type=cfg.feature_volume_type,
                         depth_decoder_name=cfg.depth_decoder_name,
                         matching_encoder_type=cfg.matching_encoder_type, **common)
-    ported = ("mlp_feature_volume", "unet_pp", "resnet", False)
-    if (cfg.feature_volume_type, cfg.depth_decoder_name, cfg.matching_encoder_type,
-            cfg.use_prior) != ported:
+    ported = ("mlp_feature_volume", "unet_pp", "resnet")
+    if (cfg.feature_volume_type, cfg.depth_decoder_name, cfg.matching_encoder_type) != ported:
         raise NotImplementedError(
             "the port runs the metadata volume, the U-Net++ decoder and the ResNet "
-            "matching encoder, without the prior")
-    return BDNet(**common)
+            "matching encoder")
+    return BDNet(use_prior=cfg.use_prior, **common)
 
 
 def build_dataset(cfg: Config, split: str, kind: str = "bd", limit_to_scan_id=None,
@@ -155,6 +156,12 @@ def fit(cfg: Config, kind: str = "bd", device: str = "cuda", max_steps: Optional
     if cfg.load_weights_from_checkpoint:
         state = torch.load(cfg.load_weights_from_checkpoint, map_location="cpu", weights_only=True)
         load_state_dict(net, state.get("model", state))
+    elif cfg.lazy_load_weights_from_checkpoint:
+        state = torch.load(cfg.lazy_load_weights_from_checkpoint, map_location="cpu",
+                           weights_only=True)
+        n = lazy_load_state_dict(net, state.get("model", state))
+        print(f"lazy-loaded {n} of {len(net.state_dict())} tensors from "
+              f"{cfg.lazy_load_weights_from_checkpoint}")
     net.to(dev).train()
 
     train_ds = build_dataset(cfg, "train", kind)

@@ -8,9 +8,10 @@ make_regression_train_step).
   update with index i (0-based) runs at the rate for i, scaled by 0.1 once
   i >= lr_steps[0] and again once i >= lr_steps[1].
 - The BD step: flip ~ Bernoulli(0.5) from the step's torch.Generator (or
-  given), the edge mask of gt_depth sampled at the rays (nearest), the train
-  forward with batch norm in train mode, `binary_losses`, backward,
-  optimizer step.
+  given), for a net with the prior the augmentation's uniform draws from a
+  second generator on the batch's device (or given), the edge mask of
+  gt_depth sampled at the rays (nearest), the train forward with batch norm
+  in train mode, `binary_losses`, backward, optimizer step.
 - The regression step: the same flip draw, GT normals from the NaN-masked
   depth, DepthNet's train forward, predicted normals from depth_pred_0,
   `regression_losses`, backward, optimizer step.
@@ -30,6 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from implicit_depth_tpu_torch.core.sampling import grid_sample
+from implicit_depth_tpu_torch.models.bd_net import draw_prior_noise
 from implicit_depth_tpu_torch.ops import image as image_ops
 from implicit_depth_tpu_torch.train import losses as loss_lib
 
@@ -65,15 +67,27 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
                        regularisation_weight: float = 0.5, edge_regularisation: bool = True,
                        train_flip: bool = True,
                        generator: Optional[torch.Generator] = None) -> Callable:
-    """Returns step(batch, flip=None) -> losses (detached tensors). batch =
-    (cur_data, src_data) tensors on the net's device; flip None draws from
-    `generator` (Bernoulli(0.5)) when train_flip is set, else no flip."""
+    """Returns step(batch, flip=None, prior_noise=None) -> losses (detached
+    tensors). batch = (cur_data, src_data) tensors on the net's device; flip
+    None draws from `generator` (Bernoulli(0.5)) when train_flip is set,
+    else no flip. For a net with use_prior, prior_noise None draws the
+    prior's augmentation (bd_net.draw_prior_noise, in the compute dtype)
+    from a generator on the batch's device, seeded with the flip
+    generator's seed + 1."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    prior_gens: dict = {}  # device -> the prior's generator there
 
-    def step(batch, flip: Optional[bool] = None) -> dict:
+    def step(batch, flip: Optional[bool] = None, prior_noise: Optional[list] = None) -> dict:
         cur_data, src_data = batch
         if flip is None:
             flip = _draw_flip(gen, train_flip)
+        if net.use_prior and prior_noise is None:
+            dev_t = cur_data["sampled_depths"].device
+            if dev_t not in prior_gens:
+                prior_gens[dev_t] = torch.Generator(device=dev_t).manual_seed(
+                    gen.initial_seed() + 1)
+            prior_noise = draw_prior_noise(cur_data["sampled_depths"].shape, net.compute_dtype,
+                                           prior_gens[dev_t])
         edge = None
         if edge_regularisation:
             with torch.no_grad():
@@ -82,7 +96,7 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
         cdt = net.compute_dtype
         dev = cur_data["image"].device.type
         with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
-            out = net(cur_data, src_data, flip=flip)
+            out = net(cur_data, src_data, flip=flip, prior_noise=prior_noise)
         preds = {k: v for k, v in out.items() if k.startswith("pred_")}
         losses = loss_lib.binary_losses(
             out["query_depth"], out["target_depth"][..., None], preds, pos_weight=pos_weight,

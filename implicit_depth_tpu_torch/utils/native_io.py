@@ -1,7 +1,8 @@
 """ctypes bindings for the native image-decoding core (csrc/imageio.cpp).
 
 Copy of implicit_depth_tpu/utils/native_io.py (the port imports nothing of
-the JAX package). It builds the same repository-root csrc/imageio.cpp.
+the JAX package). It builds the same repository-root csrc/imageio.cpp, into
+the port's own build directory (utils/native_build.py).
 
 The C calls release the GIL, so BatchLoader's thread pool decodes in
 parallel at native speed — the TPU-side equivalent of torch DataLoader's
@@ -12,14 +13,13 @@ built.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from typing import Optional
 
 import numpy as np
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "csrc")
-_LIB_PATH = os.path.join(_CSRC, "libimageio.so")
+from implicit_depth_tpu_torch.utils.native_build import build_library
+
 _lib = None
 _UNAVAILABLE = object()
 
@@ -28,14 +28,8 @@ def _load():
     global _lib
     if _lib is not None:
         return None if _lib is _UNAVAILABLE else _lib
-    src = os.path.join(_CSRC, "imageio.cpp")
     try:
-        if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src):
-            subprocess.check_call(
-                ["g++", "-O3", "-shared", "-fPIC", src, "-o", _LIB_PATH,
-                 "-lpng", "-ljpeg", "-lz"]
-            )
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(str(build_library("imageio.cpp", ("-O3",), ("-lpng", "-ljpeg", "-lz"))))
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
         lib.decode_depth_png.argtypes = [
             ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32,

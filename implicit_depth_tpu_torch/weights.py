@@ -81,6 +81,20 @@ def load_state_dict(model: nn.Module, state_dict: dict, optional_prefixes=()) ->
         raise KeyError(f"model keys the state_dict does not have: {missing}")
 
 
+def lazy_load_state_dict(model: nn.Module, state_dict: dict) -> int:
+    """Copies every entry of `state_dict` whose name and shape both match one
+    of `model`'s (parameters and batch-norm statistics) and leaves the rest
+    as they are: how a model starts from another's weights, e.g. the BD
+    model from a regression model (the JAX package's lazy_load_params).
+    Returns the number of tensors copied."""
+    own = model.state_dict()
+    matched = {k: v for k, v in state_dict.items() if k in own and own[k].shape == v.shape}
+    with torch.no_grad():
+        for k, v in matched.items():
+            own[k].copy_(v)
+    return len(matched)
+
+
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
     # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978

@@ -46,6 +46,11 @@ rounding boundary. The warp cases include the eval shape with view 0's
 camera centre on one output point (a sample at z's clamp lands in frame,
 outside what the inverse homography reaches) and the extreme poses at
 96x128, whose candidate boxes outgrow one stage of #6 on some planes.
+The temporal slice (tiny models): the device vertex scorer on the card
+equals the C++ sampling; the temporal eval's window loop with device
+scoring gives the frame loop's maps and flips on the card, its maps within
+1e-4 of the CPU's; a train step with the prior (#3/#4 with the prior)
+against the CPU, held to chip_smoke.py's MODEL_* bounds.
 """
 
 import numpy as np
@@ -502,6 +507,109 @@ def test_regression_train_step_gpu_matches_cpu(cuda):
                           {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()})
     (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = runs["cpu"], runs[str(cuda)]
     assert n_cpu == (0, 0) and n_gpu == (1, 1)
+    assert abs(l_gpu - l_cpu) <= chip_smoke.MODEL_LOSS_REL * abs(l_cpu)
+    num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
+    den = sum((g ** 2).sum().item() for g in g_cpu.values())
+    assert (num / den) ** 0.5 <= chip_smoke.MODEL_GRAD_L2, (num / den) ** 0.5
+
+
+# ------------------------------------------------------- the temporal slice
+
+def _temporal_scene(tmp_path):
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(num_frames=9, num_views=3, split="val", get_bd_info=True,
+                          image_height=64, image_width=96)
+    return ds, SyntheticDataset.get_gt_mesh_path(str(tmp_path), "val", "scene0",
+                                                 target_faces=20000)
+
+
+def test_device_vertex_scorer_on_the_card_matches_cpp(cuda, tmp_path):
+    """The scorer's per-frame values on the card equal the fused C++
+    sampling (f32 elementwise ops in its order, IEEE division)."""
+    from implicit_depth_tpu_torch.eval import rasterizer as ras
+    from implicit_depth_tpu_torch.eval.vertex_scorer import DeviceVertexScorer
+
+    ds, mesh = _temporal_scene(tmp_path)
+    verts, faces = ras.load_ply(mesh)
+    h, w = ds.depth_height, ds.depth_width
+    scorer = DeviceVertexScorer(verts, h, w, cuda)
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        frame = ds.get_frame("scene0", i)
+        T, K = frame["cam_T_world"], frame["K_s0"]
+        pred = rng.rand(h, w).astype(np.float32)
+        zbuf = ras.rasterize_mesh_depth(verts, faces, T, K, h, w)
+        got = scorer.frame_values(*(torch.tensor(x, device=cuda) for x in (pred, zbuf, T, K)))
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      ras.sample_vertex_predictions(verts, faces, T, K, pred))
+
+
+def test_temporal_eval_on_the_card(cuda, tmp_path):
+    """Tiny temporal BDNet, 7 frames in windows of 3: on the card the window
+    loop with device scoring gives the frame loop's maps (equal: the same
+    forwards in the same order) and flips; #1 launches once a frame; the
+    card's maps are within 1e-4 of the CPU's (plain versions)."""
+    from implicit_depth_tpu_torch.eval.temporal_driver import evaluate_temporal
+    from implicit_depth_tpu_torch.models.bd_net import BDNet
+    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
+    from implicit_depth_tpu_torch.weights import init_params
+
+    ds, mesh = _temporal_scene(tmp_path)
+    net = init_params(BDNet(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8,
+                            use_prior=True), torch.Generator().manual_seed(0)).eval()
+    kw = dict(eval_length=3, warmup=1, frame_multiplier=2, height=ds.depth_height,
+              width=ds.depth_width, max_frames_per_scene=7, collect_preds=True)
+    cpu = evaluate_temporal(net, {"scene0": ds}, {"scene0": mesh}, **kw)
+    net = net.to(cuda)
+    before = fused_metadata_volume.launches
+    frame = evaluate_temporal(net, {"scene0": ds}, {"scene0": mesh}, **kw)
+    assert fused_metadata_volume.launches == before + 7
+    window = evaluate_temporal(net, {"scene0": ds}, {"scene0": mesh}, use_scan=True,
+                               device_scoring=True, **kw)
+    for a, b, c in zip(window["preds"], frame["preds"], cpu["preds"]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(b, c, rtol=0, atol=1e-4)
+    assert (window["total_diffs"], window["total_verts"]) == (frame["total_diffs"],
+                                                              frame["total_verts"])
+    assert np.isfinite(frame["temporal_score"]) and frame["total_verts"] > 0
+
+
+def test_prior_train_step_gpu_matches_cpu(cuda):
+    """One f32 BD step of the tiny temporal BDNet, flip on, the same
+    augmentation draws on both devices: the GPU (#1-#4, #3/#4 with the
+    prior) against the CPU, held to chip_smoke.py's MODEL_* bounds."""
+    import copy
+
+    import chip_smoke
+
+    from implicit_depth_tpu_torch.models.bd_net import BDNet, draw_prior_noise
+    from implicit_depth_tpu_torch.ops import ray_head as rh
+    from implicit_depth_tpu_torch.train import state
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+    from implicit_depth_tpu_torch.weights import init_params
+
+    net = init_params(BDNet(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8,
+                            use_prior=True), torch.Generator().manual_seed(0))
+    cur, src = synthetic_bd_batch(batch=2, num_src=2, height=64, width=96, num_rays=64,
+                                  samples_per_ray=8, seed=1)
+    noise = draw_prior_noise(cur["sampled_depths"].shape, torch.float32,
+                             torch.Generator(device=cuda).manual_seed(2))
+    runs = {}
+    for dev in ("cpu", cuda):
+        n = copy.deepcopy(net).to(dev)
+        opt, sched = state.make_optimizer(n.parameters(), lr=1e-4, wd=1e-4)
+        step = state.make_bd_train_step(n, opt, sched)
+        before = rh.ray_head_fwd.prior_launches, rh.ray_head_bwd.prior_launches
+        losses = step(({k: torch.tensor(v, device=dev) for k, v in cur.items()},
+                       {k: torch.tensor(v, device=dev) for k, v in src.items()}), flip=True,
+                      prior_noise=[tuple(u.to(dev) for u in pair) for pair in noise])
+        launched = (rh.ray_head_fwd.prior_launches - before[0],
+                    rh.ray_head_bwd.prior_launches - before[1])
+        runs[str(dev)] = (float(losses["loss"]), launched,
+                          {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()})
+    (l_cpu, n_cpu, g_cpu), (l_gpu, n_gpu, g_gpu) = runs["cpu"], runs[str(cuda)]
+    assert n_cpu == (0, 0) and n_gpu == (4, 4)
     assert abs(l_gpu - l_cpu) <= chip_smoke.MODEL_LOSS_REL * abs(l_cpu)
     num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
     den = sum((g ** 2).sum().item() for g in g_cpu.values())

@@ -195,7 +195,7 @@ def test_fit_two_steps_on_cpu(tmp_path):
         "--device", "cpu", "--max_steps", "2", "--image_encoder_name", "tiny",
         "--precision", "32", "--log_dir", str(tmp_path), "--num_workers", "2",
         "--log_interval", "1", "--val_interval", "2", "--val_batches", "1",
-        "--synthetic_num_frames", "8"])
+        "--synthetic_num_frames", "8", "--lazy_load_weights_from_checkpoint", ""])
     assert res["step"] == 2 and np.isfinite(res["losses"]["loss"])
     assert 0.0 <= res["val"]["val/harmonic_iou"] <= 1.0 or np.isnan(res["val"]["val/harmonic_iou"])
     ckpt = torch.load(res["checkpoint"], map_location="cpu", weights_only=True)
