@@ -45,7 +45,7 @@ non-zero:
 6. main:        `evaluate_scenes` with the flagship BDNet (EfficientNetV2-S,
                 7 source views, 64 planes, 8 query planes, bf16, seeded
                 random weights) over 5 synthetic 512x384 tuples at b=1; kernel
-                #1 must launch once per forward.
+                #1 must launch once per forward; one more forward profiled.
 7. train:       `make_bd_train_step` on the flagship BDNet (bf16 autocast,
                 f32 parameters, seeded random weights) over b=12 synthetic
                 512x384 training tuples with N=4096 rays of S=64 samples: 6
@@ -101,6 +101,30 @@ non-zero:
                 DepthNet over 5 frames: #5 once per frame.
 17. raster-scaling: the C++ z-buffer of the 1M-face mesh at 256x192 in
                 subprocesses with OMP_NUM_THREADS 1, 2, 4 and the default.
+18. bd-depth:   `evaluate_scenes(binary_eval_depth=True)` (depth from the
+                binary oracle, the test_bd --binary_eval_depth path) with the
+                flagship BDNet (bf16) over the tuples of phase main at b=1,
+                caching every frame's depths (--cache_depths): #1 once per
+                forward and #2-#6 never, the cached depths in [0.5, 8],
+                abs_rel and a25 finite; model_time_ms; one more forward
+                profiled.
+19. bd-depth-model: f32 `forward_infer_depth` of a flagship-width BDNet at
+                128x192, K=7, D=64, with the test CLI's validation
+                thresholds, on the GPU and on the CPU from the same weights,
+                the head set so that the logit falls with depth and most
+                pixels settle inside (0.5, 8) (at least half must): the share
+                of pixels within DEPTH_ATOL against DEPTH_SHARE, and no host
+                synchronisation inside the bisection (sync debug mode, 12
+                iterations against 0).
+20. bd-dot-main: the dot-product BDNet (dot_product_model.yaml, bf16)
+                through `evaluate_scenes` over the same tuples: #5 once per
+                forward and the others never; IoUs in [0, 1]; model_time_ms;
+                one more forward profiled.
+21. bd-dot-train: `make_bd_train_step` on the dot-product BDNet at b=12,
+                N=4096, S=64, 6 steps: #1-#6 launch 0/0/4/4/1/1 per step;
+                losses finite, parameters and BN statistics moved; step time,
+                peak memory, device idle share of one profiled step.
+22. bd-dot-train-model: phase 8 with the dot-product BDNet.
 Then one JSON line with the six kernels' results (with each kernel's
 launches on every path that runs it) and, last, the device line.
 
@@ -719,44 +743,109 @@ def phase_kernel_ray() -> dict:
     return result
 
 
-def flagship_net(dtype, seed: int = 0, use_prior: bool = False):
+DOT = "simple_cost_volume"  # dot_product_model.yaml's feature_volume_type
+
+
+def flagship_net(dtype, seed: int = 0, use_prior: bool = False,
+                 feature_volume_type: str = "mlp_feature_volume"):
     """The flagship BDNet (implicit_depth.yaml; with use_prior
-    implicit_depth_temporal.yaml), seeded random weights, eval mode."""
+    implicit_depth_temporal.yaml; with feature_volume_type DOT
+    dot_product_model.yaml), seeded random weights, eval mode."""
     from implicit_depth_tpu_torch.models.bd_net import BDNet
     from implicit_depth_tpu_torch.weights import init_params
 
-    net = BDNet(num_src_views=7, num_depth_bins=64, use_prior=use_prior, compute_dtype=dtype)
+    net = BDNet(num_src_views=7, num_depth_bins=64, use_prior=use_prior, compute_dtype=dtype,
+                feature_volume_type=feature_volume_type)
     return init_params(net, torch.Generator().manual_seed(seed)).eval()
 
 
-def phase_main() -> dict:
+def eval_dataset(pass_frame_id: bool = False):
+    """The synthetic 512x384 test tuples of the eval phases (5 tuples of 8
+    views)."""
     from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+
+    return SyntheticDataset(num_frames=12, num_views=8, image_height=384, image_width=512,
+                            split="test", get_bd_info=True, pass_frame_id=pass_frame_id)
+
+
+def cli_thresholder(validation: bool = False):
+    """cli/test_bd.py's thresholder: 0.5 at the 8 planes, or with
+    --use_validation_thresholds 0.5, 0.4, then 0.3."""
     from implicit_depth_tpu_torch.eval import binary_metrics as bm
+
+    thr = [0.5, 0.4] + [0.3] * 6 if validation else [0.5] * 8
+    return bm.Thresholder(np.linspace(1.5, 5.0, 8, dtype=np.float32), np.asarray(thr, np.float32))
+
+
+def _occlusion_eval(label: str, net, ds, expected, **kwargs) -> dict:
+    """evaluate_scenes over `ds` at b=1 with the launch counts zeroed just
+    before; raises unless every tuple ran one forward, the launches #1-#6
+    are expected(forwards) and no prediction is non-finite."""
     from implicit_depth_tpu_torch.eval.occlusion_eval import evaluate_scenes
 
-    ds = SyntheticDataset(num_frames=12, num_views=8, image_height=384, image_width=512,
-                          split="test", get_bd_info=True)
-    net = flagship_net(torch.bfloat16).cuda().cast_to_compute_dtype()
-    thresholder = bm.Thresholder(np.linspace(1.5, 5.0, 8, dtype=np.float32),
-                                 np.full(8, 0.5, np.float32))
     _zero_launch_counts()
-    res = evaluate_scenes(net, {"scene0": ds}, batch_size=1, thresholder=thresholder)
+    res = evaluate_scenes(net, {"scene0": ds}, batch_size=1, thresholder=cli_thresholder(),
+                          **kwargs)
     counts = _launch_counts()
-    launches = counts[0]
-    metrics = res["all_scene"].final_metrics
-    if res["forwards"] != len(ds) or counts != (res["forwards"], 0, 0, 0, 0, 0):
-        raise AssertionError(f"{res['forwards']} forwards over {len(ds)} tuples, "
-                             f"kernel launches #1-#6 {counts}")
+    n = res["forwards"]
+    if n != len(ds) or counts != expected(n):
+        raise AssertionError(f"{label}: {n} forwards over {len(ds)} tuples, kernel launches "
+                             f"#1-#6 {counts}, expected {expected(n)}")
     if res["nonfinite_preds"]:
-        raise AssertionError(f"{res['nonfinite_preds']} non-finite predictions")
+        raise AssertionError(f"{label}: {res['nonfinite_preds']} non-finite predictions")
+    res["counts"] = counts
+    return res
+
+
+def _profile_forward(label: str, net, ds, binary_eval_depth: bool = False) -> None:
+    """One more eval forward of the first tuple, as evaluate_scenes runs it,
+    under torch.profiler: its wall time, the device time summed over
+    kernels, the idle share, and the largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from implicit_depth_tpu_torch.data.mvs_dataset import collate
+    from implicit_depth_tpu_torch.eval.occlusion_eval import make_forward_fn
+
+    cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
+                for d in collate([ds[0]]))
+    fwd = make_forward_fn(net, binary_eval_depth, cli_thresholder().to("cuda"))
+    with torch.inference_mode():
+        fwd(cur, src)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fwd(cur, src)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((getattr(ev, "self_device_time_total", 0.0) / 1e3, ev.count, ev.key)
+                      for ev in prof.key_averages()
+                      if "cuda" in str(getattr(ev, "device_type", "")).lower()), reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    print(f"{label} profile (one more forward under torch.profiler): wall {wall_ms:.1f} ms, "
+          f"device kernels {device_ms:.1f} ms (device idle {max(0.0, 1 - device_ms / wall_ms):.1%})"
+          f", {sum(k[1] for k in kernels)} kernel launches; largest by device time:", flush=True)
+    for ms, count, name in kernels[:6]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+
+
+def _check_ious(label: str, metrics: dict) -> None:
     for prefix in ("iou_d_", "surface_iou_d_", "boundary_iou_d_"):
         vals = [v for k, v in metrics.items() if k.startswith(prefix)]
         if len(vals) != 8 or not all(np.isnan(v) or 0.0 <= v <= 1.0 for v in vals):
-            raise AssertionError(f"bad {prefix}* scores: {vals}")
+            raise AssertionError(f"{label}: bad {prefix}* scores: {vals}")
+
+
+def phase_main() -> dict:
+    net = flagship_net(torch.bfloat16).cuda().cast_to_compute_dtype()
+    res = _occlusion_eval("main", net, eval_dataset(), lambda n: (n, 0, 0, 0, 0, 0))
+    launches = res["counts"][0]
+    metrics = res["all_scene"].final_metrics
+    _check_ious("main", metrics)
     print(f"main: {res['forwards']} forwards of BDNet.forward_val (EfficientNetV2-S, K=7, D=64, "
           f"P=8, bf16, seeded random weights) on 512x384 synthetic tuples, b=1: "
           f"model_time_ms {res['model_time_ms']:.3f}, step_time_ms {res['step_time_ms']:.3f}, "
           f"kernel launches {launches}, iou_d_3.0 {metrics['iou_d_3.0']:.4f}", flush=True)
+    _profile_forward("main", net, eval_dataset())
     return {"launches": launches, "model_time_ms": res["model_time_ms"],
             "step_time_ms": res["step_time_ms"]}
 
@@ -818,7 +907,8 @@ def _zero_launch_counts() -> None:
 TRAIN_STEPS = 6
 
 
-def _train_run(batch_size: int, use_prior: bool = False) -> dict:
+def _train_run(batch_size: int, use_prior: bool = False,
+               feature_volume_type: str = "mlp_feature_volume") -> dict:
     from implicit_depth_tpu_torch.data.mvs_dataset import BDSamplingConfig, collate
     from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
     from implicit_depth_tpu_torch.train import state
@@ -830,14 +920,17 @@ def _train_run(batch_size: int, use_prior: bool = False) -> dict:
     cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
                 for d in collate([ds[i] for i in range(batch_size)]))
     data_s = time.perf_counter() - t0
-    net = flagship_net(torch.bfloat16, use_prior=use_prior).cuda()
+    net = flagship_net(torch.bfloat16, use_prior=use_prior,
+                       feature_volume_type=feature_volume_type).cuda()
     opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
     step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
     watched = {"encoder.conv_stem.weight": net.encoder.conv_stem.weight,
-               "volume_mlp.fc0_kernel": net.volume_mlp.fc0_kernel,
+               "matching.conv1.weight": net.matching.conv1.weight,
                "binary_mlp.s3_fc1.weight": net.binary_mlp.s3_fc1.weight,
                "matching.bn1.running_var": net.matching.bn1.running_var,
                "encoder.s5_b14.bn3.running_mean": net.encoder.s5_b14.bn3.running_mean}
+    if hasattr(net, "volume_mlp"):
+        watched["volume_mlp.fc0_kernel"] = net.volume_mlp.fc0_kernel
     before = {k: v.detach().clone() for k, v in watched.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -889,6 +982,29 @@ def _profile_step(step, batch) -> dict:
             "top": kernels[:10] + ported}
 
 
+def _check_train(label: str, res: dict, expected: tuple) -> float:
+    """Raises unless a _train_run's launches #1-#6 are `expected`, its losses
+    finite and every watched tensor moved; returns the median step time of
+    steps 2-6."""
+    if res["launches"] != expected:
+        raise AssertionError(f"{label}: kernel launches #1-#6 {res['launches']} over "
+                             f"{TRAIN_STEPS} steps, expected {expected}")
+    if not all(np.isfinite(v) for ls in res["losses"] for v in ls.values()):
+        raise AssertionError(f"{label}: non-finite losses {res['losses']}")
+    if not all(res["moved"].values()):
+        raise AssertionError(f"{label}: parameters or BN statistics did not move: {res['moved']}")
+    return float(np.median(res["times"][1:]))
+
+
+def _print_profile(label: str, prof: dict) -> None:
+    print(f"{label} profile (one more step under torch.profiler): wall {prof['wall_ms']:.1f} ms, "
+          f"device kernels {prof['device_ms']:.1f} ms (device idle "
+          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time, then "
+          "the port's kernels below them:", flush=True)
+    for ms, count, name in prof["top"]:
+        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+
+
 def phase_train() -> dict:
     """The training main path: 6 flagship train steps at b=12 (b=6 if 12
     does not fit in device memory)."""
@@ -899,14 +1015,7 @@ def phase_train() -> dict:
         print("train: b=12 does not fit in device memory; running b=6", flush=True)
         res = _train_run(6)
     n = TRAIN_STEPS
-    if res["launches"] != (n, n, 4 * n, 4 * n, 0, 0):
-        raise AssertionError(f"train: kernel launches #1-#6 {res['launches']} over {n} "
-                             f"steps, expected {(n, n, 4 * n, 4 * n, 0, 0)}")
-    if not all(np.isfinite(v) for ls in res["losses"] for v in ls.values()):
-        raise AssertionError(f"train: non-finite losses {res['losses']}")
-    if not all(res["moved"].values()):
-        raise AssertionError(f"train: parameters or BN statistics did not move: {res['moved']}")
-    step_ms = float(np.median(res["times"][1:]))
+    step_ms = _check_train("train", res, (n, n, 4 * n, 4 * n, 0, 0))
     print(f"train: {n} steps of make_bd_train_step (EfficientNetV2-S, K=7, D=64, bf16 autocast, "
           f"f32 params, seeded random weights), b={res['b']} synthetic 512x384 tuples, N=4096, "
           f"S=64 (data {res['data_s']:.1f} s): train_step_ms {step_ms:.1f} (median of steps "
@@ -914,14 +1023,7 @@ def phase_train() -> dict:
           f"{res['peak_gb']:.2f} GiB, launches #1-#6 {res['launches']}, loss "
           f"{res['losses'][0]['loss']:.4f} -> {res['losses'][-1]['loss']:.4f}, moved "
           f"{sorted(res['moved'])}", flush=True)
-    prof = res["profile"]
-    print(f"train profile (one more step under torch.profiler): wall {prof['wall_ms']:.1f} ms, "
-          f"device kernels {prof['device_ms']:.1f} ms (device idle "
-          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time, then "
-          "the port's kernels below them:",
-          flush=True)
-    for ms, count, name in prof["top"]:
-        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+    _print_profile("train", res["profile"])
     return {"launches": res["launches"], "train_step_ms": step_ms, "peak_gb": res["peak_gb"],
             "b": res["b"]}
 
@@ -939,10 +1041,12 @@ def phase_train() -> dict:
 MODEL_LOSS_REL, MODEL_GRAD_L2, MODEL_GRAD_LEAF = 1e-4, 1e-2, 5e-2
 
 
-def phase_train_model(use_prior: bool = False) -> None:
+def phase_train_model(use_prior: bool = False,
+                      feature_volume_type: str = "mlp_feature_volume") -> None:
     """One f32 BD step, GPU against CPU, from the same weights and batch;
     with use_prior (temporal-train-model) the temporal BDNet, both devices
-    given the same augmentation draws (drawn once on the GPU)."""
+    given the same augmentation draws (drawn once on the GPU); with
+    feature_volume_type DOT (bd-dot-train-model) the dot-product BDNet."""
     import copy
 
     from implicit_depth_tpu_torch.models.bd_net import draw_prior_noise
@@ -950,8 +1054,9 @@ def phase_train_model(use_prior: bool = False) -> None:
     from implicit_depth_tpu_torch.train import state
     from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
 
-    label = "temporal-train-model" if use_prior else "train-model"
-    net = flagship_net(torch.float32, use_prior=use_prior)
+    label = ("temporal-train-model" if use_prior else
+             "bd-dot-train-model" if feature_volume_type == DOT else "train-model")
+    net = flagship_net(torch.float32, use_prior=use_prior, feature_volume_type=feature_volume_type)
     cur, src = synthetic_bd_batch(batch=1, num_src=7, height=128, width=192, num_rays=256,
                                   samples_per_ray=64, seed=2)
     noise = (draw_prior_noise(cur["sampled_depths"].shape, torch.float32,
@@ -981,7 +1086,8 @@ def phase_train_model(use_prior: bool = False) -> None:
     leaf = max(((g_gpu[k] - g).abs().max().item() / g.abs().max().item(), k)
                for k, g in g_cpu.items() if g.abs().max().item() >= 1e-6 * gmax)
     edge_diff = (e_gpu != e_cpu).float().mean().item()
-    print(f"{label}: one f32 train step, flagship-width {'temporal ' if use_prior else ''}BDNet at "
+    kind = "temporal " if use_prior else "dot-product " if feature_volume_type == DOT else ""
+    print(f"{label}: one f32 train step, flagship-width {kind}BDNet at "
           f"128x192, b=1, N=256, S=64, flip on, GPU (kernels) vs CPU (plain versions): loss {l_gpu:.6f} vs {l_cpu:.6f} "
           f"(relative {loss_rel:.2e}, bound {MODEL_LOSS_REL}); gradients relative L2 "
           f"{grad_l2:.2e} (bound {MODEL_GRAD_L2}), worst parameter {leaf[1]} {leaf[0]:.2e} "
@@ -1288,14 +1394,7 @@ def phase_reg_train() -> dict:
           f"steps 2-{n}; all {', '.join(f'{t:.1f}' for t in times)}), peak device memory "
           f"{peak_gb:.2f} GiB, launches #1-#6 {counts}, loss {losses[0]['loss']:.4f} -> "
           f"{losses[-1]['loss']:.4f}, moved {sorted(moved)}", flush=True)
-    prof = _profile_step(step, (cur, src))
-    print(f"reg-train profile (one more step under torch.profiler): wall {prof['wall_ms']:.1f} ms, "
-          f"device kernels {prof['device_ms']:.1f} ms (device idle "
-          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time, then "
-          "the port's kernels below them:",
-          flush=True)
-    for ms, count, name in prof["top"]:
-        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+    _print_profile("reg-train", _profile_step(step, (cur, src)))
     return {"launches": counts, "reg_train_step_ms": step_ms, "peak_gb": peak_gb}
 
 
@@ -1429,29 +1528,18 @@ def phase_temporal_train() -> dict:
     #1-#4 launch 1/1/4/4 per step, every ray-head launch with the prior."""
     res = _train_run(12, use_prior=True)
     n = TRAIN_STEPS
-    if res["launches"] != (n, n, 4 * n, 4 * n, 0, 0) or res["prior_launches"] != (4 * n, 4 * n):
-        raise AssertionError(f"temporal-train: kernel launches #1-#6 {res['launches']}, with the "
-                             f"prior #3/#4 {res['prior_launches']} over {n} steps, expected "
-                             f"{(n, n, 4 * n, 4 * n, 0, 0)} and {(4 * n, 4 * n)}")
-    if not all(np.isfinite(v) for ls in res["losses"] for v in ls.values()):
-        raise AssertionError(f"temporal-train: non-finite losses {res['losses']}")
-    if not all(res["moved"].values()):
-        raise AssertionError(f"temporal-train: parameters or BN statistics did not move: "
-                             f"{res['moved']}")
-    step_ms = float(np.median(res["times"][1:]))
-    prof = res["profile"]
+    step_ms = _check_train("temporal-train", res, (n, n, 4 * n, 4 * n, 0, 0))
+    if res["prior_launches"] != (4 * n, 4 * n):
+        raise AssertionError(f"temporal-train: #3/#4 launches with the prior "
+                             f"{res['prior_launches']} over {n} steps, expected {(4 * n, 4 * n)}")
     print(f"temporal-train: {n} steps of make_bd_train_step, flagship temporal BDNet (prior, "
           f"bf16 autocast, f32 params, seeded random weights), b={res['b']} synthetic 512x384 "
           f"tuples, N=4096, S=64 (data {res['data_s']:.1f} s): train_step_ms {step_ms:.1f} "
           f"(median of steps 2-{n}; all {', '.join(f'{t:.1f}' for t in res['times'])}), peak "
           f"device memory {res['peak_gb']:.2f} GiB, launches #1-#6 {res['launches']}, with the "
           f"prior #3/#4 {res['prior_launches']}, loss {res['losses'][0]['loss']:.4f} -> "
-          f"{res['losses'][-1]['loss']:.4f}; one more step under torch.profiler: wall "
-          f"{prof['wall_ms']:.1f} ms, device kernels {prof['device_ms']:.1f} ms (device idle "
-          f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.1%}); largest by device time, "
-          "then the port's kernels below them:", flush=True)
-    for ms, count, name in prof["top"]:
-        print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}", flush=True)
+          f"{res['losses'][-1]['loss']:.4f}", flush=True)
+    _print_profile("temporal-train", res["profile"])
     return {"launches": res["launches"], "train_step_ms": step_ms, "peak_gb": res["peak_gb"]}
 
 
@@ -1534,6 +1622,157 @@ def phase_raster_scaling() -> dict:
     return out
 
 
+# ----------------------------------- depth from the binary oracle, dot volume
+
+def phase_bd_depth() -> dict:
+    """evaluate_scenes(binary_eval_depth=True) with the flagship BDNet (bf16)
+    over the tuples of phase main at b=1, the depths cached to a temporary
+    directory as --cache_depths caches them: #1 once per forward."""
+    import os
+    import pickle
+    import tempfile
+
+    net = flagship_net(torch.bfloat16).cuda().cast_to_compute_dtype()
+    ds = eval_dataset(pass_frame_id=True)
+    with tempfile.TemporaryDirectory() as cache:
+        res = _occlusion_eval("bd-depth", net, ds, lambda n: (n, 0, 0, 0, 0, 0),
+                              binary_eval_depth=True, cache_dir=cache)
+        depths = []
+        for name in sorted(os.listdir(os.path.join(cache, "scene0"))):
+            with open(os.path.join(cache, "scene0", name), "rb") as f:
+                depths.append(pickle.load(f)["search_depths"])
+    depths = np.concatenate(depths)
+    n, metrics = res["forwards"], res["all_scene"].final_metrics
+    if len(depths) != n or depths.shape[1:] != (192, 256, 1) or \
+            not (np.isfinite(depths).all() and depths.min() >= 0.5 and depths.max() <= 8.0):
+        raise AssertionError(f"bd-depth: cached depths {depths.shape} over {n} forwards, range "
+                             f"[{depths.min()}, {depths.max()}], expected within [0.5, 8]")
+    if not (np.isfinite(metrics["abs_rel"]) and np.isfinite(metrics["a25"])):
+        raise AssertionError(f"bd-depth: abs_rel {metrics['abs_rel']}, a25 {metrics['a25']}")
+    inside = float(((depths > 0.51) & (depths < 7.99)).mean())
+    print(f"bd-depth: {n} forwards of BDNet.forward_infer_depth (the trunk, then 12 scale-0 head "
+          f"passes; EfficientNetV2-S, K=7, D=64, bf16, seeded random weights) through "
+          f"evaluate_scenes(binary_eval_depth=True) on 512x384 synthetic tuples, b=1, cached: "
+          f"model_time_ms {res['model_time_ms']:.3f}, step_time_ms {res['step_time_ms']:.3f}, "
+          f"launches #1-#6 {res['counts']}, depths in [{depths.min():.4f}, {depths.max():.4f}] "
+          f"({inside:.3f} of the pixels inside (0.51, 7.99)), abs_rel {metrics['abs_rel']:.4f}, "
+          f"a25 {metrics['a25']:.4f}", flush=True)
+    _profile_forward("bd-depth", net, ds, binary_eval_depth=True)
+    return {"launches": n, "model_time_ms": res["model_time_ms"]}
+
+
+# GPU against CPU, f32 bisection: the depths agree within DEPTH_ATOL at all but
+# the pixels where a logit sits within the devices' rounding of its threshold
+# at some step (the output jumps there by up to that step's half-range); the
+# CPU tests hold the port to the JAX package at the same share.
+DEPTH_ATOL, DEPTH_SHARE = 1e-4, 0.99
+
+
+def _host_syncs(fn) -> int:
+    """The synchronising CUDA calls `fn` makes (torch's sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def phase_bd_depth_model() -> None:
+    """f32 forward_infer_depth of a flagship-width BDNet at 128x192 with the
+    validation thresholds, GPU against CPU from the same weights. Seeded
+    random weights would send every pixel's bisection to 0.5 or 8: the
+    head's depth input is scaled by 20 and its output negated, so that the
+    logit falls with depth, and its last bias set so that the median pixel's
+    logit is 0 at 3 m; the bisection then settles inside the range for most
+    pixels."""
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+
+    net = flagship_net(torch.float32)
+    cur, src = synthetic_bd_batch(batch=1, num_src=7, height=128, width=192, num_planes=1,
+                                  with_train_keys=False, seed=1)
+    thr = cli_thresholder(validation=True)
+    head = net.binary_mlp
+    with torch.no_grad():
+        head.s0_fc0.weight[:, 0] *= 20.0
+        cpu = ({k: torch.tensor(v) for k, v in cur.items()},
+               {k: torch.tensor(v) for k, v in src.items()})
+        feats = net.trunk(*cpu)["features"]
+
+        def median_logit(depth: float):
+            at = torch.full(cpu[0]["rendered_depth"][..., :1].shape, depth)
+            return net.run_mlp_val(cpu[0], feats, at).median()
+
+        if median_logit(4.0) > median_logit(3.0):
+            head.s0_fc2.weight.neg_()
+            head.s0_fc2.bias.neg_()
+        head.s0_fc2.bias -= median_logit(3.0)
+    depths = {}
+    for dev in ("cpu", "cuda"):
+        net = net.to(dev)
+        batch = ({k: torch.tensor(v, device=dev) for k, v in cur.items()},
+                 {k: torch.tensor(v, device=dev) for k, v in src.items()})
+        t = thr.to(dev)
+        with torch.no_grad():
+            depths[dev] = net.forward_infer_depth(*batch, t.bins, t.thresholds)["search_depths"]
+    with torch.no_grad():
+        syncs = [_host_syncs(lambda i=i: net.forward_infer_depth(*batch, t.bins, t.thresholds,
+                                                                 num_iters=i))
+                 for i in (0, 12)]
+    probe = _host_syncs(lambda: torch.ones(1, device="cuda").sum().item())
+    got, ref = depths["cuda"].cpu(), depths["cpu"]
+    share = ((got - ref).abs() <= DEPTH_ATOL).float().mean().item()
+    inside = ((ref > 0.51) & (ref < 7.99)).float().mean().item()
+    print(f"bd-depth-model: forward_infer_depth f32 128x192, K=7, D=64, validation thresholds: "
+          f"GPU (kernel) vs CPU (plain) {share:.4%} of the pixels within {DEPTH_ATOL} (bound "
+          f"{DEPTH_SHARE:.0%}), max_abs_err {(got - ref).abs().max().item():.3e}; {inside:.3f} of "
+          f"the pixels inside (0.51, 7.99); host synchronisations (sync debug mode, {probe} for "
+          f"one .item()) with 0 and 12 iterations {syncs[0]} and {syncs[1]}", flush=True)
+    if got.shape != (1, 64, 96) or share < DEPTH_SHARE or inside < 0.5 or probe < 1 or \
+            syncs[1] != syncs[0]:
+        raise AssertionError("bd-depth-model: the GPU bisection disagrees with the CPU one, "
+                             "settles inside the range for too few pixels, or synchronises with "
+                             "the host inside the loop")
+
+
+def phase_bd_dot_main() -> dict:
+    """The dot-product BDNet through evaluate_scenes: #5 once per forward."""
+    net = flagship_net(torch.bfloat16, feature_volume_type=DOT).cuda().cast_to_compute_dtype()
+    res = _occlusion_eval("bd-dot-main", net, eval_dataset(), lambda n: (0, 0, 0, 0, n, 0))
+    metrics = res["all_scene"].final_metrics
+    _check_ious("bd-dot-main", metrics)
+    print(f"bd-dot-main: {res['forwards']} forwards of the dot-product BDNet.forward_val "
+          f"(dot_product_model.yaml: EfficientNetV2-S, K=7, D=64, P=8, bf16, seeded random "
+          f"weights) on 512x384 synthetic tuples, b=1: model_time_ms {res['model_time_ms']:.3f}, "
+          f"step_time_ms {res['step_time_ms']:.3f}, launches #1-#6 {res['counts']}, iou_d_3.0 "
+          f"{metrics['iou_d_3.0']:.4f}", flush=True)
+    _profile_forward("bd-dot-main", net, eval_dataset())
+    return {"launches": res["forwards"], "model_time_ms": res["model_time_ms"]}
+
+
+def phase_bd_dot_train() -> dict:
+    """6 steps of make_bd_train_step on the dot-product BDNet at b=12: #3/#4
+    four times a step, #5/#6 once, #1/#2 never."""
+    res = _train_run(12, feature_volume_type=DOT)
+    n = TRAIN_STEPS
+    step_ms = _check_train("bd-dot-train", res, (0, 0, 4 * n, 4 * n, n, n))
+    print(f"bd-dot-train: {n} steps of make_bd_train_step, dot-product BDNet "
+          f"(dot_product_model.yaml, bf16 autocast, f32 params, seeded random weights), "
+          f"b={res['b']} synthetic 512x384 tuples, N=4096, S=64 (data {res['data_s']:.1f} s): "
+          f"train_step_ms {step_ms:.1f} (median of steps 2-{n}; all "
+          f"{', '.join(f'{t:.1f}' for t in res['times'])}), peak device memory "
+          f"{res['peak_gb']:.2f} GiB, launches #1-#6 {res['launches']}, loss "
+          f"{res['losses'][0]['loss']:.4f} -> {res['losses'][-1]['loss']:.4f}, moved "
+          f"{sorted(res['moved'])}", flush=True)
+    _print_profile("bd-dot-train", res["profile"])
+    return {"launches": res["launches"], "train_step_ms": step_ms, "peak_gb": res["peak_gb"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU only",
@@ -1561,6 +1800,11 @@ def main() -> int:
     phase_train_model(use_prior=True)
     reg_temporal_res = phase_reg_temporal()
     phase_raster_scaling()
+    depth_res = phase_bd_depth()
+    phase_bd_depth_model()
+    dot_main_res = phase_bd_dot_main()
+    dot_train_res = phase_bd_dot_train()
+    phase_train_model(feature_volume_type=DOT)
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -1586,11 +1830,17 @@ def main() -> int:
         row["paths"] = {"train": train_res["launches"][i],
                         "temporal-train": temporal_train_res["launches"][i]}
     kernels[0]["paths"]["temporal-main"] = temporal_res["launches"]
+    kernels[0]["paths"]["bd-depth"] = depth_res["launches"]
+    for i in (2, 3):
+        kernels[i]["paths"]["bd-dot-train"] = dot_train_res["launches"][i]
     kernels[2]["prior_ms"] = kern_ray["fwd_prior_ms"]  # the variant with the prior
     kernels[3]["prior_ms"] = kern_ray["bwd_prior_ms"]
     kernels[4]["paths"] = {"reg-train": reg_res["launches"][4],
-                           "reg-temporal": reg_temporal_res["launches"]}
-    kernels[5]["paths"] = {"reg-train": reg_res["launches"][5]}
+                           "reg-temporal": reg_temporal_res["launches"],
+                           "bd-dot-main": dot_main_res["launches"],
+                           "bd-dot-train": dot_train_res["launches"][4]}
+    kernels[5]["paths"] = {"reg-train": reg_res["launches"][5],
+                           "bd-dot-train": dot_train_res["launches"][5]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
 """Occlusion evaluation with the PyTorch port (counterpart of
 scripts/test_bd.py): per-scene 8-plane queries, per-plane thresholds,
-all/surface/boundary IoU tables and the model time; or, with
---temporal_eval, the temporal (flicker) score over each scene's frames
-against its GT mesh (eval/temporal_driver.py; --temporal_scan for the window
-loop), single process.
+all/surface/boundary IoU tables and the model time; with
+--binary_eval_depth, depth from the binary oracle (the bisection of
+BDNet.forward_infer_depth at the same thresholds) scored with the depth
+metrics; with --cache_depths, each frame's prediction pickled under
+<output_base_path>/<name>/depth_cache/<scene>/; or, with --temporal_eval,
+the temporal (flicker) score over each scene's frames against its GT mesh
+(eval/temporal_driver.py; --temporal_scan for the window loop). Single
+process: --jax_distributed is refused.
 
     python -m implicit_depth_tpu_torch.cli.test_bd \
         --config_file configs/models/implicit_depth.yaml \
         --data_config_file configs/data/scannet_default_test.yaml \
-        --load_weights_from_checkpoint weights.pt [--device cuda]
+        --load_weights_from_checkpoint weights.pt [--device cuda] \
+        [--binary_eval_depth] [--cache_depths]
     python -m implicit_depth_tpu_torch.cli.test_bd --temporal_eval \
         --config_file configs/models/implicit_depth_temporal.yaml \
         --data_config_file configs/data/synthetic_temporal.yaml \
@@ -36,8 +41,10 @@ from implicit_depth_tpu_torch.train.loop import build_dataset, build_net
 from implicit_depth_tpu_torch.weights import load_state_dict
 
 
-def main(argv=None) -> dict:
-    cfg, device = parse_config(argv)
+def load_bd_net(cfg, device: str):
+    """The config's BDNet with the port state_dict of
+    --load_weights_from_checkpoint (the training-only query heads may be
+    missing), on `device`, in eval mode at the compute dtype."""
     # f32 stays f32 (the JAX package's precision): no TF32 in convs or matmuls
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -46,8 +53,15 @@ def main(argv=None) -> dict:
     net = build_net(cfg)
     state = torch.load(cfg.load_weights_from_checkpoint, map_location="cpu", weights_only=True)
     load_state_dict(net, state, optional_prefixes=TRAIN_ONLY_PREFIXES)
-    net = net.to(device).eval().cast_to_compute_dtype()
+    return net.to(device).eval().cast_to_compute_dtype()
 
+
+def main(argv=None) -> dict:
+    cfg, device = parse_config(argv)
+    if cfg.jax_distributed:
+        raise NotImplementedError("--jax_distributed is not ported: test_bd evaluates in one "
+                                  "process")
+    net = load_bd_net(cfg, device)
     ds_cls, scans = get_dataset(cfg.dataset, cfg.dataset_scan_split_file,
                                 cfg.single_debug_scan_id)
     datasets = {scan: build_dataset(cfg, cfg.split, limit_to_scan_id=scan, pass_frame_id=True)
@@ -62,16 +76,20 @@ def main(argv=None) -> dict:
         output_dir=os.path.join(cfg.output_base_path, cfg.name, "scores"),
         batch_size=cfg.val_batch_size, name=cfg.name,
         thresholder=bm.Thresholder(planes, np.asarray(thr, np.float32)),
+        binary_eval_depth=cfg.binary_eval_depth,
         max_batches_per_scene=(None if cfg.max_frames is None
                                else -(-cfg.max_frames // max(cfg.val_batch_size, 1))),
+        cache_dir=(os.path.join(cfg.output_base_path, cfg.name, "depth_cache")
+                   if cfg.cache_depths else None),
         sigmoid_multiplier=cfg.bd_sigmoid_multiplier,
     )
     avg = results["all_scene"]
     avg.pretty_print_results(print_running_metrics=False)
-    for metric in ("iou", "surface_iou", "boundary_iou"):
-        avg.pretty_print_metric_table(metric_name=metric, single_iou=True,
-                                      depths=[1.5 + 0.5 * i for i in range(8)],
-                                      print_running_metrics=False)
+    if not cfg.binary_eval_depth:
+        for metric in ("iou", "surface_iou", "boundary_iou"):
+            avg.pretty_print_metric_table(metric_name=metric, single_iou=True,
+                                          depths=[1.5 + 0.5 * i for i in range(8)],
+                                          print_running_metrics=False)
     print(f"model_time: {results['model_time_ms']:.2f} ms/frame")
     return results
 

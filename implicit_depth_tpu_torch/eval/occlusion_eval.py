@@ -1,12 +1,21 @@
 """Dense occlusion (binary-depth) evaluation loop, counterpart of
-implicit_depth_tpu/eval/occlusion_eval.py (the non-binary path).
+implicit_depth_tpu/eval/occlusion_eval.py.
 
-The host loop feeds batches from the port's numpy BatchLoader,
-runs `BDNet.forward_val`, scores all/surface/boundary IoU on the device and
-averages per scene. `model_time` follows the reference protocol: forward
-wall time per frame at steady state (the first batch, which builds the
-kernel and warms cuDNN, is skipped), with a device synchronise on each
-side of the forward.
+The host loop feeds batches from the port's numpy BatchLoader, runs the
+forward, scores on the device and averages per scene. Two modes, as the
+JAX package's:
+- occlusion IoU: `BDNet.forward_val` at the rendered query planes, then
+  all/surface/boundary IoU per plane at the thresholder's per-bin
+  thresholds, or at each swept threshold;
+- depth from the binary oracle (`binary_eval_depth`):
+  `BDNet.forward_infer_depth` (the bisection, at the thresholder's
+  thresholds where one is given), scored with the depth metrics against
+  the ground truth (NaN read as 1, valid where above 0.5).
+`model_time` follows the reference protocol: forward wall time per frame at
+steady state (the first batch, which builds the kernel and warms cuDNN, is
+skipped), with a device synchronise on each side of the forward. With a
+`cache_dir`, each frame's prediction is pickled under the key
+`search_depths` or `pred_0` (utils/caching.py, the `--cache_depths` path).
 """
 
 from __future__ import annotations
@@ -19,16 +28,31 @@ import torch
 
 from implicit_depth_tpu_torch.data.loader import BatchLoader
 from implicit_depth_tpu_torch.eval import binary_metrics as bm
-from implicit_depth_tpu_torch.eval.metrics import ResultsAverager
+from implicit_depth_tpu_torch.eval.metrics import ResultsAverager, compute_depth_metrics_batched
 from implicit_depth_tpu_torch.models.blocks import resize_bilinear
 from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
+from implicit_depth_tpu_torch.utils.caching import cache_model_outputs
 
 Tensor = torch.Tensor
 
 
-def make_forward_fn(net, sigmoid_multiplier: float = 1.0):
-    """Model-only forward, the timed unit: (cur, src) -> sigmoid
-    predictions (b, h0, w0, P) f32."""
+def make_forward_fn(net, binary_eval_depth: bool = False,
+                    thresholder: Optional[bm.Thresholder] = None,
+                    sigmoid_multiplier: float = 1.0):
+    """Model-only forward, the timed unit: (cur, src) -> f32 predictions,
+    the sigmoid predictions (b, h0, w0, P), or with binary_eval_depth the
+    bisection's depths (b, h0, w0, 1). The thresholder lies on the net's
+    device."""
+    if binary_eval_depth:
+        tb = None if thresholder is None else thresholder.bins
+        tv = None if thresholder is None else thresholder.thresholds
+
+        def fwd(cur_data: dict, src_data: dict) -> Tensor:
+            out = net.forward_infer_depth(cur_data, src_data, threshold_bins=tb,
+                                          threshold_values=tv)
+            return out["search_depths"][..., None].float()
+
+        return fwd
 
     def fwd(cur_data: dict, src_data: dict) -> Tensor:
         out = net.forward_val(cur_data, src_data)
@@ -37,7 +61,8 @@ def make_forward_fn(net, sigmoid_multiplier: float = 1.0):
     return fwd
 
 
-def make_score_fn(thresholds: Optional[Sequence[float]] = None,
+def make_score_fn(binary_eval_depth: bool = False,
+                  thresholds: Optional[Sequence[float]] = None,
                   thresholder: Optional[bm.Thresholder] = None,
                   depth_planes: Sequence[float] = bm.DEFAULT_PLANES,
                   threshold_decimals: int = 1):
@@ -48,6 +73,14 @@ def make_score_fn(thresholds: Optional[Sequence[float]] = None,
 
     def score(pred: Tensor, cur_data: dict) -> dict:
         gt = cur_data["depth"]  # (b, hd, wd, 1), NaN invalid
+        if binary_eval_depth:
+            if pred.shape[1:3] != gt.shape[1:3]:
+                raise ValueError(f"depths at {tuple(pred.shape[1:3])} against ground truth at "
+                                 f"{tuple(gt.shape[1:3])}: the scorer compares pixel by pixel")
+            b = gt.shape[0]
+            valid = torch.nan_to_num(gt, nan=0.0) > 0.5
+            return compute_depth_metrics_batched(torch.nan_to_num(gt, nan=1.0).reshape(b, -1),
+                                                 pred.reshape(b, -1), valid.reshape(b, -1))
         query = cur_data["rendered_depth"]
         hd, wd = gt.shape[1], gt.shape[2]
         pred_r = pred
@@ -85,23 +118,29 @@ def evaluate_scenes(
     name: str = "implicit_depth_tpu_torch",
     thresholds: Optional[Sequence[float]] = None,
     thresholder: Optional[bm.Thresholder] = None,
+    binary_eval_depth: bool = False,
     max_batches_per_scene: Optional[int] = None,
+    cache_dir: Optional[str] = None,
     sigmoid_multiplier: float = 1.0,
     threshold_decimals: int = 1,
 ) -> dict:
     """Per-scene evaluation loop on the device that holds `net`.
 
-    datasets_by_scene: {scene_id: dataset yielding (cur, src)}.
+    datasets_by_scene: {scene_id: dataset yielding (cur, src)}. With
+    cache_dir, the predictions go to <cache_dir>/<scene_id>/<frame
+    id>.pickle, keyed by the batch's frame_id_string where the dataset
+    passes it.
     Returns {"all_scene": ResultsAverager, "scenes": {id: averager},
     "model_time_ms", "step_time_ms" (forward + scoring + readback, per
     frame, first batch skipped), "forwards", "launches" (fused volume
     kernel launches during the loop), "nonfinite_preds"}.
     """
     device = next(net.parameters()).device
-    fwd = make_forward_fn(net, sigmoid_multiplier)
     if thresholder is not None:
         thresholder = thresholder.to(device)
-    score = make_score_fn(thresholds, thresholder, threshold_decimals=threshold_decimals)
+    fwd = make_forward_fn(net, binary_eval_depth, thresholder, sigmoid_multiplier)
+    score = make_score_fn(binary_eval_depth, thresholds, thresholder,
+                          threshold_decimals=threshold_decimals)
 
     all_avg = ResultsAverager(name, "frame metrics")
     per_scene = {}
@@ -146,6 +185,11 @@ def evaluate_scenes(
                     elem["model_time"] = dt / nb * 1000.0
                     scene_avg.update_results(elem)
                     all_avg.update_results(elem)
+
+                if cache_dir is not None:  # frames numbered where cur has no frame ids
+                    pred_key = "search_depths" if binary_eval_depth else "pred_0"
+                    cache_model_outputs(os.path.join(cache_dir, str(scene_id)),
+                                        {pred_key: pred.cpu().numpy()}, cur, {}, bi, batch_size)
 
             scene_avg.compute_final_average(ignore_nans=True)
             per_scene[scene_id] = scene_avg

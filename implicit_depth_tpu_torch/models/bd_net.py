@@ -1,28 +1,35 @@
-"""BDNet — the implicit binary-depth model (torch): dense eval forward and
-the BD training forward.
+"""BDNet — the implicit binary-depth model (torch): dense eval forward,
+depth from the binary oracle, and the BD training forward.
 
 Counterpart of implicit_depth_tpu/models/bd_net.py for the paths that
-`forward_val` and `__call__` (here `forward`) run: image encoder
-(EfficientNetV2-S or the tiny test encoder), the ResNet matching encoder on
-all views, the metadata feature volume through ops/fused_volume.py (the
-CUDA kernels on CUDA tensors, their plain versions on CPU tensors; the
-training forward through the differentiable `fused_train`), CVEncoder ->
-DecoderPP, and the query heads: the scale-0 head once per rendered-depth
-plane (eval), or every scale at sparse rays through `factored` and
-ops/ray_head.py (training). With `use_prior` the heads take one more input,
-the temporal prior: in eval the previous frame's prediction warped through
-the rendered depth (`sample_prior`, -1 where there is none), in training
-the augmented ground-truth occupancy (`augment_prior`, from uniform draws
-the caller hands in). The zero/dot volumes, the FPN matching encoder, the
-skip decoder and depth-by-bisection are not ported yet
-(train/loop.py::build_net refuses configs that need them).
+`forward_val`, `forward_infer_depth` and `__call__` (here `forward`) run:
+image encoder (EfficientNetV2-S or the tiny test encoder), the ResNet
+matching encoder on all views, a cost volume, CVEncoder -> DecoderPP, and
+the query heads: the scale-0 head once per rendered-depth plane (eval),
+twelve times per pixel in a bisection over depth (`forward_infer_depth`),
+or every scale at sparse rays through `factored` and ops/ray_head.py
+(training). Volumes (`feature_volume_type`), as the JAX package branches:
+- `mlp_feature_volume`: the metadata volume through ops/fused_volume.py
+  (kernel #1 on CUDA tensors, the training forward through the
+  differentiable `fused_train`, #1 and #2), the plain versions on CPU
+  tensors;
+- `simple_cost_volume`: the dot-product volume over the flat warp
+  (volumes/cost_volume.py::build_warped_views, kernels #5 and #6 of
+  ops/warp_kernel.py), in eval and in training alike;
+- `zero_cost_volume`: the ablation volume of zeros.
+With `use_prior` the heads take one more input, the temporal prior: in
+eval the previous frame's prediction warped through the rendered depth
+(`sample_prior`, -1 where there is none), in training the augmented
+ground-truth occupancy (`augment_prior`, from uniform draws the caller
+hands in). The FPN matching encoder and the skip decoder are not ported
+yet (train/loop.py::build_net refuses configs that need them).
 
 Flip augmentation follows the reference: images flipped, matching features
 unflipped before the volume, the volume re-flipped before the CV encoder,
 decoder features unflipped at the end.
 
 Batch dicts use the JAX package's NHWC layout (see its module docstring);
-the conv stacks run in NCHW. Pose products, the volume operands and the
+the conv stacks run in NCHW. Pose products, the volume geometry and the
 prior's geometry are f32 at full precision, also under autocast.
 """
 
@@ -36,6 +43,7 @@ import torch.nn as nn
 from implicit_depth_tpu_torch.core import geometry
 from implicit_depth_tpu_torch.core.sampling import grid_sample
 from implicit_depth_tpu_torch.models.decoders import NUM_CH_DEC, BinaryMLPNetwork, CVEncoder, DecoderPP
+from implicit_depth_tpu_torch.models.depth_net import VOLUME_TYPES
 from implicit_depth_tpu_torch.models.image_encoders import EfficientNetV2S, TinyEncoder
 from implicit_depth_tpu_torch.models.matching import ResnetMatchingEncoder
 from implicit_depth_tpu_torch.models.volume_mlp import MetadataVolumeMLP
@@ -84,6 +92,7 @@ class BDNet(nn.Module):
     def __init__(
         self,
         image_encoder_name: str = "efficientnet",
+        feature_volume_type: str = "mlp_feature_volume",
         matching_scale: int = 1,
         matching_feature_dims: int = 16,
         num_depth_bins: int = 64,
@@ -91,9 +100,14 @@ class BDNet(nn.Module):
         min_matching_depth: float = 0.25,
         max_matching_depth: float = 5.0,
         use_prior: bool = False,
+        bd_sigmoid_multiplier: float = 1.0,
         compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if feature_volume_type not in VOLUME_TYPES:
+            raise NotImplementedError(f"feature volume {feature_volume_type} is not ported")
+        self.feature_volume_type = feature_volume_type
+        self.bd_sigmoid_multiplier = bd_sigmoid_multiplier
         self.matching_scale = matching_scale
         self.use_prior = use_prior
         self.num_depth_bins = num_depth_bins
@@ -109,8 +123,9 @@ class BDNet(nn.Module):
             raise NotImplementedError(f"image encoder {image_encoder_name} is not ported")
         enc_ch = list(self.encoder.num_ch_enc)
         self.matching = ResnetMatchingEncoder(num_ch_out=matching_feature_dims)
-        self.volume_mlp = MetadataVolumeMLP(num_src_views=num_src_views,
-                                            matching_dim=matching_feature_dims)
+        if feature_volume_type == "mlp_feature_volume":
+            self.volume_mlp = MetadataVolumeMLP(num_src_views=num_src_views,
+                                                matching_dim=matching_feature_dims)
         self.cv_encoder = CVEncoder(num_depth_bins, enc_ch[matching_scale:])
         self.decoder = DecoderPP(enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs))
         # fc0 rows: the query depth, the features [, the prior]
@@ -128,7 +143,8 @@ class BDNet(nn.Module):
               train: bool = False) -> dict:
         """Encoders + cost volume + U-Net. Returns per-scale decoder features
         (NCHW, unflipped) and the lowest-cost depth. `train` runs the
-        differentiable volume (kernels #1 and #2)."""
+        differentiable metadata volume (kernels #1 and #2); the dot volume
+        is differentiable either way (kernels #5 and #6)."""
         cdt = self.compute_dtype
         cur_image = cur_data["image"].permute(0, 3, 1, 2)             # (b, 3, h, w)
         src_image = src_data["image"].permute(0, 1, 4, 2, 3)          # (b, k, 3, h, w)
@@ -156,11 +172,18 @@ class BDNet(nn.Module):
         planes = geometry.log_depth_planes(self.min_matching_depth, self.max_matching_depth,
                                            self.num_depth_bins, device=m_cur.device)
         s = self.matching_scale
-        volume_fn = self.volume_mlp.fused_train if train else self.volume_mlp.fused
-        with no_autocast:
-            volume = volume_fn(
-                m_cur, m_src, src_data[f"K_s{s}"].float(), src_T_cur,
-                cur_data[f"invK_s{s}"].float(), cur_T_src, planes)   # (b, d, h, w) f32
+        geo = (src_data[f"K_s{s}"].float(), src_T_cur, cur_data[f"invK_s{s}"].float(), cur_T_src,
+               planes)
+        with no_autocast:                                              # (b, d, h, w) volume
+            if self.feature_volume_type == "zero_cost_volume":
+                volume = cv.zero_cost_volume(b, self.num_depth_bins, m_cur.shape[1],
+                                             m_cur.shape[2], m_cur.dtype, m_cur.device)
+            elif self.feature_volume_type == "simple_cost_volume":
+                volume = cv.dot_cost_volume(cv.build_warped_views(m_cur, m_src, *geo,
+                                                                  compute_dtype=cdt))
+            else:
+                volume_fn = self.volume_mlp.fused_train if train else self.volume_mlp.fused
+                volume = volume_fn(m_cur, m_src, *geo)                 # f32
             lowest = cv.lowest_cost_depth(volume.detach(), planes)
         if flip:
             volume = volume.flip(3)
@@ -269,3 +292,38 @@ class BDNet(nn.Module):
             logits.append(self.run_mlp_val(dict(cur_data, rendered_depth_full=q),
                                            t["features"], q))
         return {"pred_0": torch.stack(logits, dim=-1), "lowest_cost": t["lowest_cost"]}
+
+    def forward_infer_depth(self, cur_data: dict, src_data: dict,
+                            threshold_bins: Optional[Tensor] = None,
+                            threshold_values: Optional[Tensor] = None,
+                            num_iters: int = 12) -> dict:
+        """Depth from the binary oracle by bisection, as the JAX package's:
+        the trunk once, then `num_iters` scale-0 head passes. Each pixel
+        starts at lo 0.5, hi 8, mid 3.75; where sigmoid(m * logit) at mid
+        is below the threshold (strictly) hi moves to mid, else lo does,
+        and mid becomes (lo + hi) / 2. The threshold is
+        0.5, or threshold_values at the bin of mid in threshold_bins (side
+        left, the index clamped to the last bin as a JAX gather clamps).
+        The carry stays f32 on the device: no host sync in the loop.
+        Returns {"search_depths": (b, h0, w0) f32, "lowest_cost"}."""
+        t = self.trunk(cur_data, src_data)
+        shape = cur_data["rendered_depth"][..., :1].shape
+        dev = t["lowest_cost"].device
+
+        def threshold_for(depths: Tensor):
+            if threshold_values is None:
+                return 0.5
+            idx = torch.searchsorted(threshold_bins, depths.contiguous(), right=False)
+            return threshold_values[idx.clamp_max(threshold_values.shape[0] - 1)]
+
+        lo = torch.full(shape, 0.5, device=dev)
+        hi = torch.full(shape, 8.0, device=dev)
+        mid = torch.full(shape, 7.5 / 2.0, device=dev)
+        for _ in range(num_iters):
+            logits = self.run_mlp_val(cur_data, t["features"], mid)
+            pred = torch.sigmoid(self.bd_sigmoid_multiplier * logits)[..., None]
+            visible = pred < threshold_for(mid)
+            hi = torch.where(visible, mid, hi)
+            lo = torch.where(visible, lo, mid)
+            mid = (lo + hi) / 2.0
+        return {"search_depths": mid[..., 0], "lowest_cost": t["lowest_cost"]}

@@ -9,7 +9,8 @@ log scalars every log_interval steps -> validation every val_interval steps
 of the eval-mode forward) -> `torch.save` of {model, optimizer, step} at
 each validation and at the end. A config's lazy_load_weights_from_checkpoint
 (a port state_dict, e.g. of a regression model) seeds every entry whose
-name and shape match (weights.lazy_load_state_dict). Not ported yet: the
+name and shape match (weights.lazy_load_state_dict). Not ported yet, and
+refused where a flag asks for them (--resume, --jax_distributed): the
 CheckpointManager's top-k and resume with the data-order skip, async
 writes, the ExperimentLogger and multi-process data parallelism.
 """
@@ -58,12 +59,11 @@ def build_net(cfg: Config, kind: str = "bd"):
         return DepthNet(feature_volume_type=cfg.feature_volume_type,
                         depth_decoder_name=cfg.depth_decoder_name,
                         matching_encoder_type=cfg.matching_encoder_type, **common)
-    ported = ("mlp_feature_volume", "unet_pp", "resnet")
-    if (cfg.feature_volume_type, cfg.depth_decoder_name, cfg.matching_encoder_type) != ported:
-        raise NotImplementedError(
-            "the port runs the metadata volume, the U-Net++ decoder and the ResNet "
-            "matching encoder")
-    return BDNet(use_prior=cfg.use_prior, **common)
+    if (cfg.depth_decoder_name, cfg.matching_encoder_type) != ("unet_pp", "resnet"):
+        raise NotImplementedError("the port's BD model runs the U-Net++ decoder and the ResNet "
+                                  "matching encoder")
+    return BDNet(feature_volume_type=cfg.feature_volume_type, use_prior=cfg.use_prior,
+                 bd_sigmoid_multiplier=cfg.bd_sigmoid_multiplier, **common)
 
 
 def build_dataset(cfg: Config, split: str, kind: str = "bd", limit_to_scan_id=None,
@@ -149,7 +149,12 @@ def fit(cfg: Config, kind: str = "bd", device: str = "cuda", max_steps: Optional
         log_cb: Optional[Callable] = None) -> dict:
     """Trains the model of `cfg` (kind "bd" or "regression") on one device.
     Returns {"step", "losses" (the last step's), "val" (the last
-    validation), "checkpoint" (the last file written)}."""
+    validation), "checkpoint" (the last file written)}. Refuses --resume and
+    --jax_distributed, which the port does not have yet."""
+    for flag in ("resume", "jax_distributed"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"--{flag} is not ported: fit trains one process from "
+                                      "step 0")
     max_steps = max_steps or cfg.max_steps
     dev = torch.device(device)
     net = init_params(build_net(cfg, kind), torch.Generator().manual_seed(cfg.random_seed))

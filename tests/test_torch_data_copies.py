@@ -1,10 +1,12 @@
 """The port keeps its own copies of the JAX package's numpy data modules
 (config, data/{keyframes,mvs_dataset,synthetic,loader,registry,scannet},
-utils/{fixtures,io,native_io}). These tests keep the copies from drifting:
-for a fixed seed, both give bit-equal arrays, and both merge the flagship
-and synthetic configs to the same Config."""
+utils/{caching,fixtures,io,native_io}). These tests keep the copies from
+drifting: for a fixed seed, both give bit-equal arrays, both merge the
+flagship and synthetic configs to the same Config, and a frame cached by
+one loads bit-equal from the other's files."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -14,10 +16,11 @@ from implicit_depth_tpu.data import keyframes as jkeyframes
 from implicit_depth_tpu.data import loader as jloader
 from implicit_depth_tpu.data import mvs_dataset as jmvs
 from implicit_depth_tpu.data import synthetic as jsynthetic
+from implicit_depth_tpu.utils import caching as jcaching
 from implicit_depth_tpu.utils import fixtures as jfixtures
 from implicit_depth_tpu_torch import config
 from implicit_depth_tpu_torch.data import keyframes, loader, mvs_dataset, registry, synthetic
-from implicit_depth_tpu_torch.utils import fixtures
+from implicit_depth_tpu_torch.utils import caching, fixtures
 
 MODEL_CFG = "configs/models/implicit_depth.yaml"
 DATA_CFG = "configs/data/synthetic_smoke.yaml"
@@ -98,3 +101,27 @@ def test_registry_names_what_is_not_copied():
         registry.get_dataset("hypersim")
     with pytest.raises(ValueError):
         registry.get_dataset("no_such_dataset")
+
+
+def test_cached_frames_round_trip_bit_equal(tmp_path):
+    """cache_model_outputs of both copies write the same files from one
+    batch (frame ids given, and numbered from the batch index without
+    them); each copy's load_cached_output reads the other's bit-equal."""
+    jds = jsynthetic.SyntheticDataset(num_frames=6, num_views=3, split="val", get_bd_info=True,
+                                      pass_frame_id=True)
+    cur, _ = jmvs.collate([jds[0], jds[1]])
+    rng = np.random.RandomState(1)
+    outputs = {"search_depths": rng.rand(2, 32, 48, 1).astype(np.float32)}
+    for ids in (cur["frame_id_string"], None):
+        data = dict(cur, frame_id_string=ids)
+        src = {"frame_id_string": [["a", "b"], ["c", "d"]]}
+        jpaths = jcaching.cache_model_outputs(str(tmp_path / "jax"), outputs, data, src, 3, 2)
+        paths = caching.cache_model_outputs(str(tmp_path / "port"), outputs, data, src, 3, 2)
+        names = [os.path.basename(p) for p in paths]
+        assert names == [os.path.basename(p) for p in jpaths]
+        assert names == ([f"{i}.pickle" for i in ids] if ids else ["000006.pickle", "000007.pickle"])
+        for name in names:
+            frame_id = name[:-len(".pickle")]
+            got = caching.load_cached_output(str(tmp_path / "jax"), frame_id)
+            _assert_tree_equal(got, jcaching.load_cached_output(str(tmp_path / "port"), frame_id))
+            assert sorted(got) == ["K_s0", "frame_id", "search_depths", "src_ids"]

@@ -178,8 +178,7 @@ def test_build_net_refuses_unported_configs():
     from implicit_depth_tpu.config import Config
     from implicit_depth_tpu_torch.train.loop import build_net
 
-    for field, value in (("feature_volume_type", "simple_cost_volume"),
-                         ("depth_decoder_name", "skip"), ("matching_encoder_type", "fpn")):
+    for field, value in (("depth_decoder_name", "skip"), ("matching_encoder_type", "fpn")):
         cfg = Config(image_encoder_name="tiny", model_num_views=3, matching_num_depth_bins=8)
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError):
