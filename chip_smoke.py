@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, one line each or a few; any failure raises and the script exits
+(`--ddp-rank` and its options run one rank of phase 24; the script starts
+those processes itself.) Phases, one line each or a few; any failure raises and the script exits
 non-zero:
 1. device:      the card's name and power limit (nvidia-smi).
 2. build:       nvcc builds the four kernel libraries from
@@ -125,6 +126,30 @@ non-zero:
                 losses finite, parameters and BN statistics moved; step time,
                 peak memory, device idle share of one profiled step.
 22. bd-dot-train-model: phase 8 with the dot-product BDNet.
+23. fit-resume: `fit` (train/loop.py) of the flagship BD config
+                (implicit_depth.yaml, bf16, the config's b=12, synthetic
+                512x384 tuples, flip pinned) for 4 steps, validating one
+                batch and saving an async checkpoint every 2 steps, then a
+                run resumed from the step-2 checkpoint to step 4: launches
+                #1-#4 per step and validation, the resumed run's batches of
+                steps 3-4 identical (sha256) to the uninterrupted run's, the
+                restored model, optimizer and scheduler bit-equal to the
+                checkpoint, the top-k / `last` layout, the losses of steps 3-4
+                and the parameter updates within the MODEL_* bounds; then the
+                step time with and without an async save in it and the
+                save's time on the caller thread.
+24. ddp-train:  two ranks on the one card (gloo, passed explicitly: nccl
+                refuses two ranks on one card), each on 6 rows of the b=12
+                batch, against the one-process b=12 step on the same batch,
+                flip off and on: losses and gradients within the MODEL_*
+                bounds, #1-#4 1/1/4/4 per step on each rank; each rank's
+                step time and peak memory; then `fit --jax_distributed` as
+                one nccl process (world size 1).
+25. test-bd-ranks: cli/test_bd.py --jax_distributed, two processes on the
+                card, 4 synthetic scenes: rank 0's merged
+                all_scenes_metrics.json within 1e-6 relative of a one-process
+                run's; the temporal merge on 2 scenes within 1e-6 of the
+                one-process temporal score.
 Then one JSON line with the six kernels' results (with each kernel's
 launches on every path that runs it) and, last, the device line.
 
@@ -134,7 +159,9 @@ the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1041,6 +1068,22 @@ def phase_train() -> dict:
 MODEL_LOSS_REL, MODEL_GRAD_L2, MODEL_GRAD_LEAF = 1e-4, 1e-2, 5e-2
 
 
+def _grad_agreement(got: dict, ref: dict) -> tuple:
+    """(relative L2 over all tensors together, (worst per-tensor max|diff| /
+    max|ref|, its name)) of two {name: tensor} dicts, tensors whose largest
+    value is below 1e-6 of the overall largest skipped in the second."""
+    got = {k: v.double().cpu() for k, v in got.items()}
+    ref = {k: v.double().cpu() for k, v in ref.items()}
+    if set(got) != set(ref):
+        raise AssertionError(f"different tensors: {sorted(set(got) ^ set(ref))[:5]}")
+    top = max(r.abs().max().item() for r in ref.values())
+    num = sum(((got[k] - r) ** 2).sum().item() for k, r in ref.items())
+    den = sum((r ** 2).sum().item() for r in ref.values())
+    leaf = max(((got[k] - r).abs().max().item() / r.abs().max().item(), k)
+               for k, r in ref.items() if r.abs().max().item() >= 1e-6 * top)
+    return (num / den) ** 0.5, leaf
+
+
 def phase_train_model(use_prior: bool = False,
                       feature_volume_type: str = "mlp_feature_volume") -> None:
     """One f32 BD step, GPU against CPU, from the same weights and batch;
@@ -1079,12 +1122,7 @@ def phase_train_model(use_prior: bool = False,
                      image_ops.get_edge_mask(batch[0]["gt_depth"]).cpu())
     (l_cpu, g_cpu, e_cpu), (l_gpu, g_gpu, e_gpu) = runs["cpu"], runs["cuda"]
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    gmax = max(g.abs().max().item() for g in g_cpu.values())
-    num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
-    den = sum((g ** 2).sum().item() for g in g_cpu.values())
-    grad_l2 = (num / den) ** 0.5
-    leaf = max(((g_gpu[k] - g).abs().max().item() / g.abs().max().item(), k)
-               for k, g in g_cpu.items() if g.abs().max().item() >= 1e-6 * gmax)
+    grad_l2, leaf = _grad_agreement(g_gpu, g_cpu)
     edge_diff = (e_gpu != e_cpu).float().mean().item()
     kind = "temporal " if use_prior else "dot-product " if feature_volume_type == DOT else ""
     print(f"{label}: one f32 train step, flagship-width {kind}BDNet at "
@@ -1423,12 +1461,7 @@ def phase_reg_train_model() -> None:
                      {k: p.grad.detach().double().cpu() for k, p in n.named_parameters()})
     (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    gmax = max(g.abs().max().item() for g in g_cpu.values())
-    num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
-    den = sum((g ** 2).sum().item() for g in g_cpu.values())
-    grad_l2 = (num / den) ** 0.5
-    leaf = max(((g_gpu[k] - g).abs().max().item() / g.abs().max().item(), k)
-               for k, g in g_cpu.items() if g.abs().max().item() >= 1e-6 * gmax)
+    grad_l2, leaf = _grad_agreement(g_gpu, g_cpu)
     print(f"reg-train-model: one f32 regression step, flagship-width DepthNet at 128x192, b=1, "
           f"flip on, GPU (kernels) vs CPU (plain versions): loss {l_gpu:.6f} vs {l_cpu:.6f} "
           f"(relative {loss_rel:.2e}, bound {MODEL_LOSS_REL}); gradients relative L2 "
@@ -1457,7 +1490,6 @@ def phase_temporal_main() -> dict:
     1M-face procedural mesh: frame mode (host C++ scoring), window mode with
     device scoring, and window mode again without collecting the maps (its
     times)."""
-    import os
 
     from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
     from implicit_depth_tpu_torch.eval.temporal_driver import evaluate_temporal
@@ -1601,7 +1633,6 @@ def phase_raster_scaling() -> dict:
     """rasterize_mesh_depth on the 1M-face procedural mesh at 256x192, in
     subprocesses with OMP_NUM_THREADS 1, 2, 4 and the host's default: the
     median of 7 calls each."""
-    import os
 
     from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
 
@@ -1628,7 +1659,6 @@ def phase_bd_depth() -> dict:
     """evaluate_scenes(binary_eval_depth=True) with the flagship BDNet (bf16)
     over the tuples of phase main at b=1, the depths cached to a temporary
     directory as --cache_depths caches them: #1 once per forward."""
-    import os
     import pickle
     import tempfile
 
@@ -1773,7 +1803,537 @@ def phase_bd_dot_train() -> dict:
     return {"launches": res["launches"], "train_step_ms": step_ms, "peak_gb": res["peak_gb"]}
 
 
-def main() -> int:
+# ------------------------------------------------- training infrastructure
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIT_STEPS = 4  # fit-resume: the uninterrupted run; the resumed one starts at step 2
+# the flagship BD config on synthetic 512x384 tuples at the config's b=12:
+# 24 tuples, two batches an epoch; one validation batch of 4 every 2 steps
+FIT_FLAGS = ["--config_file", "configs/models/implicit_depth.yaml",
+             "--data_config_file", "configs/data/synthetic_smoke.yaml",
+             "--image_height", "384", "--image_width", "512", "--model_num_views", "8",
+             "--matching_num_depth_bins", "64", "--num_rays", "4096", "--samples_per_ray", "64",
+             "--batch_size", "12", "--val_batch_size", "4", "--val_batches", "1",
+             "--val_interval", "2", "--log_interval", "1", "--synthetic_num_frames", "31",
+             "--num_workers", "8", "--lazy_load_weights_from_checkpoint", ""]
+SAVE_ROUNDS = 3
+# Two runs of the same bf16 steps from the same state differ on the card: its
+# backward sums in no fixed order (atomics), and AdamW's normalised update
+# amplifies the difference where a gradient is small (e.g. a batch-norm
+# shift before a residual sum): on an H100 two resumed runs' updates of
+# steps 3-4 differed by 7.6e-2 relative L2 and 1.4 in the worst parameter,
+# far past the f32 MODEL_* bounds. The resumed run is held to that spread,
+# measured in the same run, times RESUME_SPREAD.
+RESUME_SPREAD = 3.0
+# The loss of step 4, one scalar, is a poor measure of that spread: over
+# four pairs of such runs on an H100 it moved by 2.6e-5 to 2.7e-4 relative.
+# It is held to RESUME_LOSS_REL instead.
+RESUME_LOSS_REL = 1e-3
+
+
+def _repo_paths(args) -> list:
+    return [os.path.join(REPO, a) if a.startswith("configs/") else a for a in args]
+
+
+def _flagship_cfg(*extra):
+    from implicit_depth_tpu_torch.config import parse_config
+
+    return parse_config(_repo_paths(FIT_FLAGS) + list(extra))[0]
+
+
+def _batch_digest(batch) -> str:
+    h = hashlib.sha256()
+    for part in batch:
+        for k in sorted(part):
+            if k != "frame_id_string":
+                h.update(np.ascontiguousarray(part[k]).tobytes())
+    return h.hexdigest()
+
+
+def _tree_diff(a, b, path: str = "") -> str:
+    """'' when two nested state_dicts are equal, tensors bit for bit; else
+    the first path that differs."""
+    if isinstance(a, torch.Tensor):
+        same = isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+        return "" if same else path
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return f"{path} (keys)"
+        return next((d for k in a if (d := _tree_diff(a[k], b[k], f"{path}/{k}"))), "")
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path} (length)"
+        return next((d for i, (x, y) in enumerate(zip(a, b))
+                     if (d := _tree_diff(x, y, f"{path}/{i}"))), "")
+    return "" if a == b else path
+
+
+def phase_fit_resume() -> dict:
+    """fit on the card, 4 steps of the flagship BD config at b=12 (flip
+    pinned), then a run resumed from its step-2 checkpoint to step 4: the
+    same batches, the restored state bit-equal to the saved one, the
+    checkpoints' layout, and the two runs' steps 3-4 and parameters within
+    the MODEL_* bounds; then the step time with and without an async save
+    in it, and the save's time on the caller thread."""
+    import shutil
+    import tempfile
+
+    from implicit_depth_tpu_torch.data.mvs_dataset import collate
+    from implicit_depth_tpu_torch.train import checkpoint as ckpt_lib
+    from implicit_depth_tpu_torch.train import state
+    from implicit_depth_tpu_torch.train.loop import batch_to_device, build_dataset, build_net, fit
+
+    tmp = tempfile.mkdtemp(prefix="fit_resume_")
+    try:
+        full_ckpts = os.path.join(tmp, "full", "checkpoints")
+        runs, launches = {}, {}
+        resume = ("--resume", os.path.join(full_ckpts, "ckpt_00000002"))
+        expected = {"full": (FIT_STEPS + 2, FIT_STEPS, 4 * FIT_STEPS, 4 * FIT_STEPS, 0, 0),
+                    "resumed": (2 + 1, 2, 8, 8, 0, 0),  # steps + validations for #1
+                    "again": (2 + 1, 2, 8, 8, 0, 0)}
+        for name, extra in (("full", ()), ("resumed", resume), ("again", resume)):
+            cfg = _flagship_cfg("--log_dir", tmp, "--name", name, *extra)
+            digests, losses = {}, {}
+
+            def on_batch(step, batch, digests=digests):
+                digests[step] = _batch_digest(batch)
+
+            def on_log(step, scalars, losses=losses):
+                if "train/loss" in scalars:
+                    losses[step] = scalars["train/loss"]
+
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            res = fit(cfg, "bd", device="cuda", max_steps=FIT_STEPS, log_cb=on_log,
+                      batch_cb=on_batch, train_flip=False)
+            wall = time.perf_counter() - t0
+            launches[name] = _launch_counts()
+            if launches[name] != expected[name]:
+                raise AssertionError(f"fit-resume {name}: launches #1-#6 {launches[name]}, "
+                                     f"expected {expected[name]}")
+            runs[name] = dict(res=res, digests=digests, losses=losses, wall=wall)
+            torch.cuda.empty_cache()
+        full, resumed = runs["full"], runs["resumed"]
+
+        if sorted(resumed["digests"]) != [3, 4] or any(
+                resumed["digests"][s] != full["digests"][s] for s in (3, 4)):
+            raise AssertionError("fit-resume: the resumed run took other batches at steps 3-4")
+        layout = sorted(os.listdir(full_ckpts))
+        metas = [ckpt_lib.load_meta(os.path.join(full_ckpts, d))["step"] for d in layout[:2]]
+        if (layout != ["ckpt_00000002", "ckpt_00000004", "last"] or metas != [2, 4]
+                or os.readlink(os.path.join(full_ckpts, "last")) != "ckpt_00000004"
+                or not os.path.exists(os.path.join(tmp, "full", "metrics.jsonl"))):
+            raise AssertionError(f"fit-resume: checkpoint layout {layout}, steps {metas}")
+
+        # the restored model, optimizer and scheduler equal what was saved
+        ck2 = os.path.join(full_ckpts, "ckpt_00000002")
+        net = build_net(_flagship_cfg()).cuda()
+        opt, sched = state.make_optimizer(net.parameters(), 1e-4, 1e-4, (18000, 36000))
+        step = ckpt_lib.restore_state(ck2, net, opt, sched)
+        saved = torch.load(os.path.join(ck2, "state.pt"), map_location="cpu", weights_only=True)
+        diff = _tree_diff(saved, ckpt_lib.snapshot(net, opt, sched, step))
+        if step != 2 or diff:
+            raise AssertionError(f"fit-resume: the restored state differs at {diff or 'step'}")
+        params = [n for n, _ in net.named_parameters()]
+        del net, opt, sched
+        torch.cuda.empty_cache()
+
+        # step 3 starts from the restored state: its forward is the
+        # uninterrupted run's. From its backward on, the card's sums in no
+        # fixed order (atomics) part the runs: the parameter updates are held
+        # to the spread of two resumed runs ("again") times RESUME_SPREAD
+        again = runs["again"]
+        loss3_rel = abs(resumed["losses"][3] - full["losses"][3]) / abs(full["losses"][3])
+        loss4 = [abs(a["losses"][4] - b["losses"][4]) / abs(b["losses"][4])
+                 for a, b in ((resumed, full), (again, resumed))]
+        finals = {k: torch.load(os.path.join(r["res"]["checkpoint"], "state.pt"),
+                                map_location="cpu", weights_only=True)["model"]
+                  for k, r in runs.items()}
+        final_l2, _ = _grad_agreement({n: finals["resumed"][n] for n in params},
+                                      {n: finals["full"][n] for n in params})
+        moved = {k: {n: finals[k][n] - saved["model"][n] for n in params} for k in finals}
+        upd = _grad_agreement(moved["resumed"], moved["full"])
+        spread = _grad_agreement(moved["again"], moved["resumed"])
+        print(f"fit-resume: fit of the flagship BDNet (implicit_depth.yaml, bf16, b=12, "
+              f"synthetic 512x384, flip pinned): {FIT_STEPS} steps in {full['wall']:.1f} s, "
+              f"launches #1-#6 {launches['full']}; resumed from ckpt_00000002 to step "
+              f"{resumed['res']['step']} in {resumed['wall']:.1f} s, launches "
+              f"{launches['resumed']}, and again; batches of steps 3-4 identical (sha256); "
+              f"restored model, optimizer and scheduler bit-equal to state.pt; layout {layout}; "
+              f"step-3 loss relative {loss3_rel:.2e} (bound {MODEL_LOSS_REL}); final parameters "
+              f"relative L2 {final_l2:.2e} (bound {MODEL_GRAD_L2}); resumed vs uninterrupted / "
+              f"the two resumed runs: step-4 loss relative {loss4[0]:.2e} / {loss4[1]:.2e} (bound "
+              f"{RESUME_LOSS_REL} for both), parameter updates "
+              f"of steps 3-4 relative L2 {upd[0]:.2e} / {spread[0]:.2e}, worst parameter "
+              f"{upd[1][0]:.2e} ({upd[1][1]}) / {spread[1][0]:.2e} ({spread[1][1]}) (bound: "
+              f"{RESUME_SPREAD}x the second, at least the MODEL_* bound)", flush=True)
+        if not (loss3_rel <= MODEL_LOSS_REL and final_l2 <= MODEL_GRAD_L2
+                and max(loss4) <= RESUME_LOSS_REL
+                and upd[0] <= max(MODEL_GRAD_L2, RESUME_SPREAD * spread[0])
+                and upd[1][0] <= max(MODEL_GRAD_LEAF, RESUME_SPREAD * spread[1][0])):
+            raise AssertionError("fit-resume: the resumed run disagrees with the uninterrupted one")
+
+        # the step with and without an async save in it
+        cfg = _flagship_cfg()
+        ds = build_dataset(cfg, "train")
+        batch = batch_to_device(collate([ds[i] for i in range(cfg.batch_size)]),
+                                torch.device("cuda"))
+        net = flagship_net(torch.bfloat16).cuda()
+        opt, sched = state.make_optimizer(net.parameters(), 1e-4, 1e-4)
+        train_step = state.make_bd_train_step(net, opt, sched,
+                                              generator=torch.Generator().manual_seed(0))
+        mgr = ckpt_lib.CheckpointManager(os.path.join(tmp, "timing"), monitor="m", mode="max",
+                                         async_write=True)
+        plain, with_save, caller, written = [], [], [], []
+        for i in range(2 + SAVE_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                plain.append((time.perf_counter() - t0) * 1e3)
+        for i in range(SAVE_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(net, opt, sched, step=i, metrics={"m": float(i)})
+            t1 = time.perf_counter()
+            train_step(batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            mgr.wait()
+            t3 = time.perf_counter()
+            caller.append((t1 - t0) * 1e3)
+            with_save.append((t2 - t0) * 1e3)
+            written.append((t3 - t0) * 1e3)
+        nbytes_state = os.path.getsize(os.path.join(mgr.best_path(), "state.pt"))
+        out = {"step_ms": float(np.median(plain)), "step_with_save_ms": float(np.median(with_save)),
+               "save_caller_ms": float(np.median(caller)),
+               "save_written_ms": float(np.median(written)), "state_bytes": nbytes_state,
+               "launches": tuple(a + b for a, b in zip(launches["full"], launches["resumed"]))}
+        print(f"fit-resume: flagship train step at b=12 {out['step_ms']:.1f} ms without a save "
+              f"(median of {SAVE_ROUNDS}; {', '.join(f'{t:.1f}' for t in plain)}), "
+              f"{out['step_with_save_ms']:.1f} ms with an async CheckpointManager.save at its "
+              f"start ({', '.join(f'{t:.1f}' for t in with_save)}); the save on the caller "
+              f"thread (host copies of parameters, BN statistics, AdamW moments) "
+              f"{out['save_caller_ms']:.1f} ms ({', '.join(f'{t:.1f}' for t in caller)}), "
+              f"written {out['save_written_ms']:.1f} ms after the save began "
+              f"(state.pt {nbytes_state / 2**20:.1f} MiB)", flush=True)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+DDP_WORLD, DDP_TIMED_STEPS = 2, 4
+
+
+def _ddp_batch():
+    """The b=12 batch of the ddp-train phase (numpy), the same in every
+    process: the first 12 training tuples of a fresh synthetic dataset."""
+    from implicit_depth_tpu_torch.data.mvs_dataset import BDSamplingConfig, collate
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset(num_frames=12 + 7, num_views=8, image_height=384, image_width=512,
+                          split="train", get_bd_info=True,
+                          bd_config=BDSamplingConfig(num_rays=4096, samples_per_ray=64))
+    return collate([ds[i] for i in range(12)])
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_procs(cmds: list, timeout_s: int, env=None) -> list:
+    """Runs the commands at once from the repository root; kills them all
+    when one outlives timeout_s; raises unless all exit 0. Returns their
+    standard outputs."""
+    env = dict(os.environ if env is None else env, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"a process outlived {timeout_s} s: {cmds}")
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{c[:4]}... exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    return [o for o, _ in outs]
+
+
+def ddp_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One rank of ddp-train (chip_smoke.py --ddp-rank ...): the flagship
+    step on rows [6 rank, 6 rank + 6) of the b=12 batch, on the one card,
+    gloo: one f32 step from the initial weights with the flip off and one
+    with it on (rank 0 saves the averaged gradients), then DDP_TIMED_STEPS
+    timed bf16 steps (the config's precision); its losses, launches, step
+    times and peak memory to rank{rank}.json."""
+    import torch.distributed as dist
+
+    from implicit_depth_tpu_torch.parallel import distributed
+    from implicit_depth_tpu_torch.train import state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda")
+    dev = distributed.local_device("cuda")
+    cur, src = ({k: distributed.rank_rows(torch.as_tensor(v)).to(dev) for k, v in d.items()
+                 if k != "frame_id_string"} for d in _ddp_batch())
+    result = {"backend": dist.get_backend(), "rows": int(cur["image"].shape[0])}
+    for flip in (False, True):
+        net = flagship_net(torch.float32).to(dev)
+        opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
+        step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
+        _zero_launch_counts()
+        losses = step((cur, src), flip=flip)
+        result[f"flip{int(flip)}"] = {"losses": {k: float(v) for k, v in losses.items()},
+                                      "launches": _launch_counts()}
+        if rank == 0:
+            torch.save({n: p.grad.detach().cpu() for n, p in net.named_parameters()
+                        if p.grad is not None}, os.path.join(out_dir, f"grads_flip{int(flip)}.pt"))
+        del net, opt, sched, step
+    net = flagship_net(torch.bfloat16).to(dev)
+    opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
+    step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    times = []
+    for _ in range(DDP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step((cur, src))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    result.update(times=times, launches=_launch_counts(),
+                  peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    distributed.shutdown()
+
+
+_NCCL_FIT = r"""
+import sys
+import torch
+import torch.distributed as dist
+from implicit_depth_tpu_torch.config import parse_config
+from implicit_depth_tpu_torch.train.loop import fit
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg, device = parse_config(sys.argv[1:])
+res = fit(cfg, "bd", device=device)
+x = torch.ones(1, device="cuda")
+dist.all_reduce(x)  # the communicator of the nccl group, made at its first collective
+print("nccl-fit", dist.get_backend(), dist.get_world_size(), res["step"], float(x),
+      res["checkpoint"] is not None)
+dist.destroy_process_group()
+"""
+
+
+def phase_ddp_train() -> dict:
+    """The two-rank step on the one card (gloo) against the one-process
+    b=12 step on the same batch, flip off and on, in f32 (the MODEL_*
+    bounds are f32 bounds: in bf16 the two differ by rounding in other
+    orders, ~1e-3 in the loss); each rank's bf16 step time and peak memory;
+    then fit --jax_distributed as one nccl process."""
+    import shutil
+    import tempfile
+
+    from implicit_depth_tpu_torch.train import state
+
+    batch = tuple({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
+                  for d in _ddp_batch())
+    ref = {}
+    for flip in (False, True):
+        net = flagship_net(torch.float32).cuda()
+        opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
+        step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
+        losses = step(batch, flip=flip)
+        ref[flip] = ({k: float(v) for k, v in losses.items()},
+                     {n: p.grad.detach().cpu() for n, p in net.named_parameters()
+                      if p.grad is not None})
+        del net, opt, sched, step
+    del batch
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="ddp_train_")
+    try:
+        port = _free_port()
+        _run_procs([[sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+                     "--ddp-world", str(DDP_WORLD), "--ddp-port", str(port), "--ddp-out", tmp]
+                    for r in range(DDP_WORLD)], timeout_s=600)
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(DDP_WORLD)]
+        lines = []
+        for flip in (False, True):
+            key = f"flip{int(flip)}"
+            if ranks[0][key]["losses"] != ranks[1][key]["losses"]:
+                raise AssertionError(f"ddp-train: the ranks' losses differ ({key})")
+            for r in ranks:
+                if tuple(r[key]["launches"]) != (1, 1, 4, 4, 0, 0):
+                    raise AssertionError(f"ddp-train: launches #1-#6 {r[key]['launches']} in one "
+                                         "step of a rank, expected (1, 1, 4, 4, 0, 0)")
+            ref_losses, ref_grads = ref[flip]
+            loss_rel = max(abs(ranks[0][key]["losses"][k] - v) / abs(v)
+                           for k, v in ref_losses.items() if v != 0)
+            grads = torch.load(os.path.join(tmp, f"grads_{key}.pt"), weights_only=True)
+            grad_l2, leaf = _grad_agreement(grads, ref_grads)
+            lines.append(f"flip {'on' if flip else 'off'}: loss {ranks[0][key]['losses']['loss']:.6f} "
+                         f"vs {ref_losses['loss']:.6f}, worst loss relative {loss_rel:.2e} (bound "
+                         f"{MODEL_LOSS_REL}), gradients relative L2 {grad_l2:.2e} (bound "
+                         f"{MODEL_GRAD_L2}), worst parameter {leaf[1]} {leaf[0]:.2e} (bound "
+                         f"{MODEL_GRAD_LEAF})")
+            if not (loss_rel <= MODEL_LOSS_REL and grad_l2 <= MODEL_GRAD_L2
+                    and leaf[0] <= MODEL_GRAD_LEAF):
+                raise AssertionError("ddp-train: the two-rank step disagrees with the one-process "
+                                     "step: " + lines[-1])
+        n = DDP_TIMED_STEPS
+        for r in ranks:
+            if tuple(r["launches"]) != (n, n, 4 * n, 4 * n, 0, 0):
+                raise AssertionError(f"ddp-train: launches #1-#6 {r['launches']} over {n} steps")
+        print(f"ddp-train: {DDP_WORLD} ranks on the one card, backend {ranks[0]['backend']} "
+              f"(passed explicitly: nccl refuses two ranks on one card), {ranks[0]['rows']} rows "
+              f"each of the b=12 flagship batch, one f32 step against the one-process f32 b=12 "
+              f"step: " + "; ".join(lines), flush=True)
+        for r, res in enumerate(ranks):
+            print(f"ddp-train: rank {r}: bf16 step {np.median(res['times'][1:]):.1f} ms (median of "
+                  f"steps 2-{n}; all {', '.join(f'{t:.1f}' for t in res['times'])}), peak device "
+                  f"memory {res['peak_gb']:.2f} GiB, launches #1-#6 over {n} steps "
+                  f"{tuple(res['launches'])}", flush=True)
+
+        port = _free_port()
+        out = _run_procs([[sys.executable, "-c", _NCCL_FIT] + _repo_paths(FIT_FLAGS) + [
+            "--max_steps", "1", "--val_interval", "1", "--synthetic_num_frames", "19",
+            "--log_dir", tmp, "--name", "nccl",
+            "--jax_distributed", "--coordinator_address", f"127.0.0.1:{port}",
+            "--distributed_num_processes", "1", "--distributed_process_id", "0"]],
+            timeout_s=600)[0]
+        line = [ln for ln in out.splitlines() if ln.startswith("nccl-fit ")]
+        if not line or line[0].split()[1:] != ["nccl", "1", "1", "1.0", "True"]:
+            raise AssertionError(f"ddp-train: fit --jax_distributed over nccl: {out[-2000:]}")
+        print("ddp-train: fit --jax_distributed as one process over nccl (world size 1): 1 step, "
+              "1 validation, 1 checkpoint, and one nccl all-reduce", flush=True)
+        return {"launches": tuple(ranks[0]["launches"]),
+                "step_ms": [float(np.median(r["times"][1:])) for r in ranks],
+                "peak_gb": [r["peak_gb"] for r in ranks]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+TEST_BD_FLAGS = ["--config_file", "configs/models/implicit_depth.yaml",
+                 "--data_config_file", "configs/data/synthetic_smoke.yaml", "--split", "test",
+                 "--image_height", "384", "--image_width", "512", "--model_num_views", "8",
+                 "--matching_num_depth_bins", "64", "--val_batch_size", "1", "--max_frames", "2"]
+TEMPORAL_FLAGS = ["--config_file", "configs/models/implicit_depth_temporal.yaml",
+                  "--data_config_file", "configs/data/synthetic_temporal.yaml",
+                  "--temporal_eval", "--max_frames", "5"]
+
+
+def _test_bd_ranks(flags: list, out_dir: str) -> list:
+    port = _free_port()
+    return _run_procs([[sys.executable, "-m", "implicit_depth_tpu_torch.cli.test_bd"] + flags + [
+        "--output_base_path", out_dir, "--jax_distributed", "--coordinator_address",
+        f"127.0.0.1:{port}", "--distributed_num_processes", str(DDP_WORLD),
+        "--distributed_process_id", str(r)] for r in range(DDP_WORLD)], timeout_s=600)
+
+
+def phase_test_bd_ranks() -> dict:
+    """cli/test_bd.py --jax_distributed, two processes on the card, over 4
+    synthetic scenes: rank 0's merged all_scenes_metrics.json against a
+    one-process run's; then the temporal merge on 2 scenes."""
+    import shutil
+    import tempfile
+
+    from implicit_depth_tpu_torch.cli import test_bd
+
+    tmp = tempfile.mkdtemp(prefix="test_bd_ranks_")
+    try:
+        with open(os.path.join(tmp, "scans4.txt"), "w") as f:
+            f.write("sA\nsB\nsC\nsD\n")
+        with open(os.path.join(tmp, "scans2.txt"), "w") as f:
+            f.write("sA\nsB\n")
+        weights = {}
+        for name, prior in (("bd", False), ("temporal", True)):
+            weights[name] = os.path.join(tmp, f"{name}.pt")
+            torch.save(flagship_net(torch.float32, use_prior=prior).state_dict(), weights[name])
+
+        flags = _repo_paths(TEST_BD_FLAGS) + [
+            "--dataset_scan_split_file", os.path.join(tmp, "scans4.txt"),
+            "--load_weights_from_checkpoint", weights["bd"]]
+        t0 = time.perf_counter()
+        test_bd.main(flags + ["--output_base_path", os.path.join(tmp, "one")])
+        one_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = _test_bd_ranks(flags, os.path.join(tmp, "ranks"))
+        ranks_s = time.perf_counter() - t0
+        scores = os.path.join(tmp, "ranks", "implicit_depth", "scores")
+        files = sorted(os.listdir(scores))
+        got = json.load(open(os.path.join(scores, "all_scenes_metrics.json")))["scores"]
+        ref = json.load(open(os.path.join(tmp, "one", "implicit_depth", "scores",
+                                          "all_scenes_metrics.json")))["scores"]
+        keys = [k for k in ref if k != "model_time"]  # a wall time, not a score
+        g, r = np.array([got.get(k, np.nan) for k in keys]), np.array([ref[k] for k in keys])
+        finite = np.isfinite(r)
+        worst = float(np.max(np.abs(g[finite] - r[finite]) / np.maximum(np.abs(r[finite]), 1e-12)))
+        if (sorted(got) != sorted(ref) or (np.isnan(g) != np.isnan(r)).any() or worst > 1e-6
+                or files != ["all_scenes_metrics.json"] + [f"s{c}_metrics.json" for c in "ABCD"]
+                or "model_time" not in outs[0] or "model_time" in outs[1]):
+            raise AssertionError(f"test-bd-ranks: the merge of 2 ranks differs from one process: "
+                                 f"worst relative {worst:.2e}, files {files}")
+        print(f"test-bd-ranks: cli/test_bd.py --jax_distributed, {DDP_WORLD} processes on the "
+              f"card (flagship BDNet, bf16, 512x384), 4 synthetic scenes of 2 frames, scenes "
+              f"[r::2] per rank: rank 0's merged all_scenes_metrics.json vs one process: "
+              f"{len(keys)} scores, worst relative {worst:.2e} (bound 1e-6), iou_d_3.0 "
+              f"{got['iou_d_3.0']:.4f}; {ranks_s:.1f} s with 2 processes, {one_s:.1f} s in one",
+              flush=True)
+
+        tflags = _repo_paths(TEMPORAL_FLAGS) + [
+            "--dataset_scan_split_file", os.path.join(tmp, "scans2.txt"),
+            "--load_weights_from_checkpoint", weights["temporal"]]
+        one = test_bd.main(tflags + ["--output_base_path", os.path.join(tmp, "one")])
+        torch.cuda.empty_cache()
+        outs = _test_bd_ranks(tflags, os.path.join(tmp, "ranks"))
+        tdir = os.path.join(tmp, "ranks", "implicit_depth_temporal", "temporal")
+        parts = [json.load(open(os.path.join(tdir, f"rank{r}.json"))) for r in range(DDP_WORLD)]
+        from implicit_depth_tpu_torch.config import parse_config
+
+        cfg = parse_config(_repo_paths(TEMPORAL_FLAGS))[0]
+        denom = ((cfg.eval_length - cfg.warmup) * cfg.eval_frame_multiplier
+                 * sum(p["n_scenes"] for p in parts))
+        merged = sum(p["total_diffs"] for p in parts) / max(denom, 1)
+        rel = abs(merged - one["temporal_score"]) / max(abs(one["temporal_score"]), 1e-12)
+        printed = [ln for ln in outs[0].splitlines() if ln.startswith("global temporal_score:")]
+        if rel > 1e-6 or len(printed) != 1 or [p["n_scenes"] for p in parts] != [1, 1]:
+            raise AssertionError(f"test-bd-ranks: temporal merge {merged} vs one process "
+                                 f"{one['temporal_score']}, printed {printed}")
+        print(f"test-bd-ranks: temporal merge, 2 scenes of 5 frames (temporal BDNet, bf16): "
+              f"{printed[0]}; one process {one['temporal_score']:.6f} ({one['total_diffs']:.0f} "
+              f"flips), merged {merged:.6f}, relative {rel:.2e} (bound 1e-6)", flush=True)
+        return {"worst_rel": worst, "temporal_rel": rel}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drives the PyTorch port on one NVIDIA GPU.")
+    ap.add_argument("--ddp-rank", type=int, help="run one rank of ddp-train (internal)")
+    ap.add_argument("--ddp-world", type=int, default=DDP_WORLD)
+    ap.add_argument("--ddp-port", type=int)
+    ap.add_argument("--ddp-out")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU only",
               file=sys.stderr)
@@ -1782,6 +2342,9 @@ def main() -> int:
     # matmuls anywhere in this run
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.ddp_rank is not None:
+        ddp_rank_main(args.ddp_rank, args.ddp_world, args.ddp_port, args.ddp_out)
+        return 0
     phase_device()
     phase_build()
     kern = phase_kernel()
@@ -1805,6 +2368,9 @@ def main() -> int:
     dot_main_res = phase_bd_dot_main()
     dot_train_res = phase_bd_dot_train()
     phase_train_model(feature_volume_type=DOT)
+    fit_res = phase_fit_resume()
+    ddp_res = phase_ddp_train()
+    phase_test_bd_ranks()
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -1833,6 +2399,9 @@ def main() -> int:
     kernels[0]["paths"]["bd-depth"] = depth_res["launches"]
     for i in (2, 3):
         kernels[i]["paths"]["bd-dot-train"] = dot_train_res["launches"][i]
+    for i, row in enumerate(kernels[:4]):
+        row["paths"]["fit-resume"] = fit_res["launches"][i]  # both fits, validations included
+        row["paths"]["ddp-train"] = ddp_res["launches"][i]  # rank 0, its timed steps
     kernels[2]["prior_ms"] = kern_ray["fwd_prior_ms"]  # the variant with the prior
     kernels[3]["prior_ms"] = kern_ray["bwd_prior_ms"]
     kernels[4]["paths"] = {"reg-train": reg_res["launches"][4],

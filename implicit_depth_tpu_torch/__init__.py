@@ -14,7 +14,9 @@ it needs are copies with only their imports changed (`config`, `data/`,
 
 Paths: the dense occlusion eval (`BDNet.forward_val`, `cli/test_bd.py`) and
 BD training (`BDNet.forward`, `train/state.py`, `train/loop.py::fit`,
-`cli/train_bd.py`). Their hand-written CUDA kernels (csrc/, built with nvcc
+`cli/train_bd.py`, with checkpoints and resume in `train/checkpoint.py`
+and data parallelism over processes in `parallel/distributed.py`). Their
+hand-written CUDA kernels (csrc/, built with nvcc
 by ops/cuda_build.py at the first CUDA call): the fused metadata volume
 forward and backward (`ops/fused_volume.py`) and the ray-head MLP forward
 and backward (`ops/ray_head.py`).

@@ -10,9 +10,10 @@ predicted depth), single process.
         --data_config_file configs/data/scannet_default_test.yaml \
         --load_weights_from_checkpoint weights.pt [--device cuda]
 
-The checkpoint is the port's state_dict (`torch.save`), e.g. from
-implicit_depth_tpu_torch.weights.state_dict_from_flax, or a checkpoint of
-cli/train.py. The device defaults to cuda; pass --device cpu to run the
+The checkpoint is a port state_dict (`torch.save`, e.g. from
+implicit_depth_tpu_torch.weights.state_dict_from_flax or
+cli/convert_checkpoint.py), or a checkpoint directory of cli/train.py, or
+its `{model, ...}` file. The device defaults to cuda; pass --device cpu to run the
 plain versions of the kernels on the CPU. The averages go to
 <output_base_path>/<name>/scores/depth_metrics.json.
 """
@@ -27,6 +28,7 @@ from implicit_depth_tpu_torch.cli.test_bd import run_temporal
 from implicit_depth_tpu_torch.config import parse_config
 from implicit_depth_tpu_torch.data.registry import get_dataset
 from implicit_depth_tpu_torch.eval.depth_eval import evaluate_depth
+from implicit_depth_tpu_torch.train.checkpoint import load_weights
 from implicit_depth_tpu_torch.train.loop import build_dataset, build_net
 from implicit_depth_tpu_torch.weights import load_state_dict
 
@@ -39,8 +41,7 @@ def main(argv=None) -> dict:
     if not cfg.load_weights_from_checkpoint:
         raise SystemExit("--load_weights_from_checkpoint is required")
     net = build_net(cfg, "regression")
-    state = torch.load(cfg.load_weights_from_checkpoint, map_location="cpu", weights_only=True)
-    load_state_dict(net, state.get("model", state))
+    load_state_dict(net, load_weights(cfg.load_weights_from_checkpoint))
     net = net.to(device).eval().cast_to_compute_dtype()
 
     ds_cls, scans = get_dataset(cfg.dataset, cfg.dataset_scan_split_file,

@@ -1,15 +1,13 @@
-"""BD training with the PyTorch port (counterpart of scripts/train_bd.py),
-single process on one device.
+"""BD training with the PyTorch port (counterpart of scripts/train_bd.py).
 
     python -m implicit_depth_tpu_torch.cli.train_bd \
         --config_file configs/models/implicit_depth.yaml \
         --data_config_file configs/data/scannet_default_train.yaml \
         [--device cuda] [--max_steps N] [--load_weights_from_checkpoint weights.pt]
 
-The device defaults to cuda (the CUDA kernels); --device cpu runs their
-plain versions on the CPU. Checkpoints ({model, optimizer, step}) go to
-<log_dir>/<name>/checkpoints at every validation and at the end; scalars
-are printed one JSON object per line.
+The options, checkpoints, --resume and the data-parallel launch of N
+processes (--jax_distributed ...) are those of cli/train.py; the
+checkpoints keep the best three on val/harmonic_iou.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ threshold of each plane, to pick the per-plane test thresholds.
         --data_config_file configs/data/scannet_default_val.yaml \
         --load_weights_from_checkpoint weights.pt [--device cuda]
 
-The checkpoint is the port's state_dict, loaded as cli/test_bd.py loads it.
+The checkpoint is loaded as cli/test_bd.py loads it.
 The scores go to <output_base_path>/<name>/val_sweep/. The device defaults
 to cuda; --device cpu runs the kernels' plain versions on the CPU.
 """

@@ -91,6 +91,16 @@ class ResultsAverager:
         with open(filepath, "w") as f:
             json.dump(out, f, indent=4)
 
+    def from_json(self, filepath: str) -> None:
+        """Loads the final metrics of an output_json file (the multi-process
+        merge of cli/test_bd.py reads each scene's)."""
+        with open(filepath) as f:
+            d = json.load(f)
+        self.exp_name = d["exp_name"]
+        self.metrics_name = d["metrics_type"]
+        self.final_metrics = {k: float(v) for k, v in d["scores"].items()}
+        self.elem_metrics_list = [dict(self.final_metrics)]
+
     def pretty_print_results(self, print_exp_name: bool = True,
                              print_running_metrics: bool = True) -> None:
         metrics = self._metrics(print_running_metrics)

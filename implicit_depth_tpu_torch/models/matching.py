@@ -15,6 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from implicit_depth_tpu_torch.models.blocks import instance_norm
+from implicit_depth_tpu_torch.parallel import distributed
 
 Tensor = torch.Tensor
 
@@ -25,7 +26,14 @@ class BatchNorm(nn.Module):
     biased batch variance, statistics and normalisation in f32 whatever the
     input dtype, and the running statistics move as 0.9 old + 0.1 batch,
     with the biased variance (torch.nn.BatchNorm2d would use the unbiased
-    one). Parameters weight/bias, buffers running_mean/var."""
+    one). Parameters weight/bias, buffers running_mean/var.
+
+    In a process group of more than one rank the train-mode statistics are
+    those of the global batch, as the JAX package's batch norm sees a batch
+    sharded over processes: each rank's count, mean and sum of squared
+    deviations are exchanged with one differentiable all-reduce and
+    combined (Chan et al.'s pairwise update), so no E[x^2] - E[x]^2
+    cancellation enters."""
 
     MOMENTUM = 0.9
 
@@ -41,6 +49,8 @@ class BatchNorm(nn.Module):
         if self.training:
             x32 = x.float()
             var, mean = torch.var_mean(x32, dim=(0, 2, 3), unbiased=False)
+            if distributed.data_parallel():
+                mean, var = _global_moments(mean, var, x32.numel() // x32.shape[1])
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)
@@ -51,6 +61,19 @@ class BatchNorm(nn.Module):
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * scale
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def _global_moments(mean: Tensor, var: Tensor, n: int) -> tuple:
+    """The mean and biased variance over every rank's batch from each rank's
+    (n, mean, biased variance) per channel."""
+    rank, world = distributed.process_info()
+    mine = torch.stack([torch.full_like(mean, float(n)), mean, var * n])
+    rows = [mine if r == rank else torch.zeros_like(mine) for r in range(world)]
+    counts, means, m2s = distributed.global_sum(torch.stack(rows)).unbind(1)
+    total = counts.sum(0)
+    g_mean = (counts * means).sum(0) / total
+    g_m2 = (m2s + counts * (means - g_mean) ** 2).sum(0)
+    return g_mean, g_m2 / total
 
 
 def blur_pool(x_nchw: Tensor, filt_size: int = 4, stride: int = 2) -> Tensor:

@@ -5,7 +5,13 @@ explicit masks where the reference used NaN:
 - regression: scale_invariant_loss, ms_gradient_loss, normals_loss,
   mv_depth_loss and regression_losses (the SimpleRecon cocktail
   ms + grad + normals + 0.2 mv, with a hypersim branch without the last
-  three)."""
+  three).
+
+Every mean over the batch is a ratio of two sums (masked_mean, and the
+scale-invariant loss's pair of sums). In a process group of more than one
+rank both sums are taken over the global batch
+(parallel/distributed.py::global_sum), as the JAX package's losses see a
+batch sharded over processes: every rank computes the global loss."""
 
 from __future__ import annotations
 
@@ -17,13 +23,15 @@ import torch.nn.functional as F
 from implicit_depth_tpu_torch.core import geometry
 from implicit_depth_tpu_torch.core.sampling import grid_sample
 from implicit_depth_tpu_torch.ops import image as image_ops
+from implicit_depth_tpu_torch.parallel.distributed import global_sum
 
 Tensor = torch.Tensor
 
 
 def masked_mean(x: Tensor, mask: Tensor, eps: float = 1e-10) -> Tensor:
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=eps)
+    num, den = global_sum(torch.stack([torch.sum(x * m), torch.sum(m)]))
+    return num / torch.clamp(den, min=eps)
 
 
 def bce_with_logits(logits: Tensor, target: Tensor, pos_weight: float = 1.0) -> Tensor:
@@ -69,10 +77,11 @@ def scale_invariant_loss(log_gt: Tensor, log_pred: Tensor, mask: Tensor,
                          si_lambda: float = 0.85) -> Tensor:
     """Eigen's scale-invariant loss over the masked pixels."""
     m = mask.to(log_gt.dtype)
-    n = torch.clamp(m.sum(), min=1e-10)
     diff = (log_gt - log_pred) * m
-    mean_sq = torch.sum(diff * diff) / n
-    mean = torch.sum(diff) / n
+    n, sum_sq, total = global_sum(torch.stack([m.sum(), torch.sum(diff * diff), torch.sum(diff)]))
+    n = torch.clamp(n, min=1e-10)
+    mean_sq = sum_sq / n
+    mean = total / n
     return torch.sqrt(mean_sq - si_lambda * mean * mean)
 
 

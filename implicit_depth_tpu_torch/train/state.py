@@ -16,6 +16,14 @@ make_regression_train_step).
   depth, DepthNet's train forward, predicted normals from depth_pred_0,
   `regression_losses`, backward, optimizer step.
 
+Data parallel (parallel/distributed.py): in a process group of more than
+one rank each rank steps on its rows of the global batch. Batch norm and
+the losses reduce over the global batch, the flip is one draw that every
+rank makes alike (the same seed), the prior's draws are made for the
+global batch and each rank takes its rows, and the gradients are averaged
+over the ranks before the optimizer step: one logical step on the global
+batch, as the JAX step on a batch sharded over processes.
+
 Mixed precision: parameters stay f32; at bf16 compute the conv and dense
 stacks run under torch.autocast(dtype=bfloat16), the counterpart of flax's
 f32 params with `dtype=bfloat16`. The models keep the pose products and the
@@ -33,6 +41,7 @@ import torch
 from implicit_depth_tpu_torch.core.sampling import grid_sample
 from implicit_depth_tpu_torch.models.bd_net import draw_prior_noise
 from implicit_depth_tpu_torch.ops import image as image_ops
+from implicit_depth_tpu_torch.parallel import distributed
 from implicit_depth_tpu_torch.train import losses as loss_lib
 
 Tensor = torch.Tensor
@@ -73,7 +82,8 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
     else no flip. For a net with use_prior, prior_noise None draws the
     prior's augmentation (bd_net.draw_prior_noise, in the compute dtype)
     from a generator on the batch's device, seeded with the flip
-    generator's seed + 1."""
+    generator's seed + 1; in a process group, for the global batch, of
+    which this rank takes its rows."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     prior_gens: dict = {}  # device -> the prior's generator there
 
@@ -86,8 +96,11 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
             if dev_t not in prior_gens:
                 prior_gens[dev_t] = torch.Generator(device=dev_t).manual_seed(
                     gen.initial_seed() + 1)
-            prior_noise = draw_prior_noise(cur_data["sampled_depths"].shape, net.compute_dtype,
-                                           prior_gens[dev_t])
+            b, n, s = cur_data["sampled_depths"].shape
+            world = distributed.process_info()[1]
+            prior_noise = [tuple(distributed.rank_rows(u) for u in pair) for pair in
+                           draw_prior_noise((b * world, n, s), net.compute_dtype,
+                                            prior_gens[dev_t])]
         edge = None
         if edge_regularisation:
             with torch.no_grad():
@@ -103,6 +116,7 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
             regularisation_weight=regularisation_weight, edge_mask=edge)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        distributed.average_gradients(net.parameters())
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -139,6 +153,7 @@ def make_regression_train_step(net, optimizer, scheduler=None, *, dataset: str =
         losses = loss_lib.regression_losses(cur_data, src_data, out, dataset=dataset)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        distributed.average_gradients(net.parameters())
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

@@ -13,8 +13,9 @@ The port's submodules carry the flax module names (`encoder`, `matching`,
   map to `bn1.{weight,bias,running_mean,running_var}`.
 
 Every leaf is consumed exactly once; an unknown leaf raises. A released
-upstream checkpoint loads through the JAX package's
-`train/checkpoint.py::convert_reference_bd_checkpoint` and then this bridge.
+upstream checkpoint loads through the converters of
+`train/checkpoint.py` (`convert_reference_bd_state_dict`, which ends in
+this bridge; `cli/convert_checkpoint.py`).
 """
 
 from __future__ import annotations

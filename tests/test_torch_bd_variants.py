@@ -1,7 +1,7 @@
 """Port parity for the BD model on the dot-product and zero volumes
 (`feature_volume_type` simple_cost_volume / zero_cost_volume) against the
-JAX package, on the CPU in f32, and the flags of `fit` and `cli/test_bd.py`
-that the port refuses.
+JAX package, on the CPU in f32, and what `fit` and `cli/test_bd.py` refuse
+of --resume and --jax_distributed.
 
 Sizes follow tests/test_torch_prior.py: the tiny encoder, K=2 source views,
 8 planes, 64x96 images. Tolerances:
@@ -196,16 +196,25 @@ _CLI = ["--config_file", os.path.join(REPO, "configs/models/implicit_depth.yaml"
 
 @pytest.mark.parametrize("flag", ["resume", "jax_distributed"])
 def test_fit_refuses_unported_flags(tmp_path, flag):
+    """fit takes --resume and --jax_distributed now (tests/test_torch_checkpoint.py,
+    tests/test_torch_distributed.py); it refuses them where they cannot work,
+    before it writes anything: a resume directory with no checkpoint, a
+    process group without its address, size and rank."""
     from implicit_depth_tpu_torch.cli import train_bd
 
-    value = ["--resume", str(tmp_path / "old_run")] if flag == "resume" else ["--jax_distributed"]
-    with pytest.raises(NotImplementedError, match=f"--{flag}"):
+    if flag == "resume":
+        value, error = ["--resume", str(tmp_path / "old_run")], FileNotFoundError
+    else:
+        value, error = ["--jax_distributed"], ValueError
+    with pytest.raises(error, match="old_run" if flag == "resume" else "--coordinator_address"):
         train_bd.main(_CLI + ["--log_dir", str(tmp_path)] + value)
     assert not (tmp_path / "implicit_depth").exists()  # nothing written
 
 
 def test_test_bd_refuses_jax_distributed():
+    """cli/test_bd.py takes --jax_distributed now (tests/test_torch_distributed.py);
+    without the process group's address, size and rank it refuses."""
     from implicit_depth_tpu_torch.cli import test_bd
 
-    with pytest.raises(NotImplementedError, match="--jax_distributed"):
+    with pytest.raises(ValueError, match="--coordinator_address"):
         test_bd.main(_CLI + ["--jax_distributed"])

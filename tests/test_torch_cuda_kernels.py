@@ -51,6 +51,11 @@ equals the C++ sampling; the temporal eval's window loop with device
 scoring gives the frame loop's maps and flips on the card, its maps within
 1e-4 of the CPU's; a train step with the prior (#3/#4 with the prior)
 against the CPU, held to chip_smoke.py's MODEL_* bounds.
+The training infrastructure (tiny models): two ranks on the one card
+(gloo, tests/torch_ddp_child.py) against one process on the card, batch
+norm to 1e-5 and the BD and regression steps to the CPU test's bounds; fit on
+the card resumed from its step-2 checkpoint against the uninterrupted run:
+the same batches, and chip_smoke.py's fit-resume bounds.
 """
 
 import numpy as np
@@ -614,3 +619,150 @@ def test_prior_train_step_gpu_matches_cpu(cuda):
     num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
     den = sum((g ** 2).sum().item() for g in g_cpu.values())
     assert (num / den) ** 0.5 <= chip_smoke.MODEL_GRAD_L2, (num / den) ** 0.5
+
+
+def _ddp_child():
+    """tests/torch_ddp_child.py, loaded by its path (another package named
+    `tests` may come first on the path)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_ddp_child.py")
+    spec = importlib.util.spec_from_file_location("torch_ddp_child", path)
+    child = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(child)
+    return child
+
+
+def _ddp_inputs(child):
+    """Global batch of 4 and seeded tiny models for tests/torch_ddp_child.py,
+    made with the port alone (the card's machine has no JAX)."""
+    from implicit_depth_tpu_torch.models.bd_net import BDNet
+    from implicit_depth_tpu_torch.models.depth_net import DepthNet
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+    from implicit_depth_tpu_torch.weights import init_params
+
+    bd = synthetic_bd_batch(batch=4, num_src=child.K, height=64, width=96, num_planes=3,
+                            num_rays=64, samples_per_ray=8, seed=0)
+    cur, src = synthetic_bd_batch(batch=4, num_src=child.K, height=64, width=96, num_rays=4,
+                                  samples_per_ray=2, seed=0)
+    cur["depth"][0, :5, :7] = np.nan
+    cur["mask"] = np.isfinite(cur["depth"])
+    reg = ({k: v for k, v in cur.items()
+            if k not in ("gt_depth", "sampled_rays", "sampled_depths")}, src)
+    state_dicts = {}
+    for case, (model, _, prior) in child.STEP_CASES.items():
+        net = (BDNet(num_src_views=child.K, num_depth_bins=child.D_BINS, image_encoder_name="tiny",
+                     use_prior=prior) if model == "bd" else
+               DepthNet(num_src_views=child.K, num_depth_bins=child.D_BINS,
+                        image_encoder_name="tiny"))
+        state_dicts[case] = init_params(net, torch.Generator().manual_seed(3)).state_dict()
+    rng = np.random.RandomState(4)
+    return {"cases": ["bn"] + list(child.STEP_CASES), "seed": 7,
+            "batches": {"bd": bd, "regression": reg}, "state_dicts": state_dicts,
+            "bn_x": torch.tensor(rng.randn(4, 8, 5, 6).astype(np.float32) * 2 + 1),
+            "bn_w": torch.tensor(rng.randn(4, 8, 5, 6).astype(np.float32))}
+
+
+def test_two_rank_step_on_the_card_matches_one_process(cuda, tmp_path):
+    """Two ranks on the one card (gloo), each on 2 rows of a global batch of
+    4, against one process on the card on the whole batch: batch norm's
+    outputs 1e-5 of the largest value; BD steps (flip off and on, and with
+    the prior drawn for the global batch) and a regression step: losses
+    within chip_smoke.py's MODEL_LOSS_REL, gradients to the bounds of the
+    CPU test (torch_ddp_child.assert_grads_agree; kernels #1-#6 on both
+    sides)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    child = _ddp_child()
+    inputs = _ddp_inputs(child)
+    path = str(tmp_path / "inputs.pt")
+    torch.save(inputs, path)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen([sys.executable, os.path.join(repo, "tests", "torch_ddp_child.py"),
+                               str(r), "2", str(port), path, str(tmp_path / f"r{r}.pt"), "cuda"],
+                              cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], errs
+    ranks = [torch.load(str(tmp_path / f"r{r}.pt"), weights_only=False) for r in range(2)]
+    one = {case: child.run_case(case, inputs, "cuda") for case in inputs["cases"]}
+    y = torch.cat([r["bn"]["y"] for r in ranks])
+    assert (y - one["bn"]["y"]).abs().max() <= 1e-5 * one["bn"]["y"].abs().max()
+    for case in child.STEP_CASES:
+        got, ref = ranks[0][case], one[case]
+        assert got["losses"] == ranks[1][case]["losses"]
+        for k, v in ref["losses"].items():
+            assert abs(got["losses"][k] - v) <= chip_smoke.MODEL_LOSS_REL * abs(v), (case, k)
+        child.assert_grads_agree(got["grads"], ref["grads"])
+
+
+def test_fit_resume_on_the_card(cuda, tmp_path):
+    """fit on the card (tiny synthetic config, flip pinned) for 4 steps, then
+    twice resumed from its step-2 checkpoint: the same batches at steps 3-4,
+    the step-3 loss within chip_smoke.py's MODEL_LOSS_REL, the final
+    parameters within MODEL_GRAD_L2, and the parameter updates of steps 3-4
+    within the two resumed runs' spread times chip_smoke.RESUME_SPREAD (the
+    card's backward sums in no fixed order; bit-equal on the CPU,
+    tests/test_torch_checkpoint.py)."""
+    import hashlib
+    import os
+
+    import chip_smoke
+
+    from implicit_depth_tpu_torch.config import parse_config
+    from implicit_depth_tpu_torch.train.loop import fit
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    flags = ["--config_file", os.path.join(repo, "configs/models/implicit_depth.yaml"),
+             "--data_config_file", os.path.join(repo, "configs/data/synthetic_smoke.yaml"),
+             "--image_encoder_name", "tiny", "--precision", "32", "--num_workers", "2",
+             "--log_interval", "1", "--val_interval", "2", "--val_batches", "1",
+             "--synthetic_num_frames", "10", "--lazy_load_weights_from_checkpoint", "",
+             "--log_dir", str(tmp_path)]
+    runs = {}
+    ck2 = str(tmp_path / "full" / "checkpoints" / "ckpt_00000002")
+    for name, extra in (("full", []), ("resumed", ["--resume", ck2]), ("again", ["--resume", ck2])):
+        digests, losses = {}, {}
+
+        def on_batch(step, batch, digests=digests):
+            digests[step] = hashlib.sha256(b"".join(
+                np.ascontiguousarray(part[k]).tobytes() for part in batch for k in sorted(part)
+                if k != "frame_id_string")).hexdigest()
+
+        def on_log(step, scalars, losses=losses):
+            if "train/loss" in scalars:
+                losses[step] = scalars["train/loss"]
+
+        cfg, _ = parse_config(flags + ["--name", name] + extra)
+        res = fit(cfg, "bd", device="cuda", max_steps=4, log_cb=on_log, batch_cb=on_batch,
+                  train_flip=False)
+        runs[name] = (res, digests, losses)
+    (full, fd, fl), (resumed, rd, rl) = runs["full"], runs["resumed"]
+    assert sorted(rd) == [3, 4] and all(rd[s] == fd[s] for s in (3, 4))
+    assert abs(rl[3] - fl[3]) <= chip_smoke.MODEL_LOSS_REL * abs(fl[3])
+    models = [torch.load(os.path.join(p, "state.pt"), weights_only=True)["model"]
+              for p in [ck2] + [runs[k][0]["checkpoint"] for k in ("full", "resumed", "again")]]
+    names = [k for k, v in models[0].items() if v.is_floating_point()]
+    final_l2, _ = chip_smoke._grad_agreement({k: models[2][k] for k in names},
+                                             {k: models[1][k] for k in names})
+    assert final_l2 <= chip_smoke.MODEL_GRAD_L2
+    upd = [{k: m[k].double() - models[0][k].double() for k in names} for m in models[1:]]
+    upd = [{k: v for k, v in u.items() if upd[0][k].abs().max() > 0} for u in upd]
+    got, spread = (chip_smoke._grad_agreement(upd[1], upd[0]),
+                   chip_smoke._grad_agreement(upd[2], upd[1]))
+    k = chip_smoke.RESUME_SPREAD
+    assert got[0] <= max(chip_smoke.MODEL_GRAD_L2, k * spread[0]), (got, spread)
+    assert got[1][0] <= max(chip_smoke.MODEL_GRAD_LEAF, k * spread[1][0]), (got, spread)

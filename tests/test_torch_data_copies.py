@@ -1,11 +1,15 @@
 """The port keeps its own copies of the JAX package's numpy data modules
 (config, data/{keyframes,mvs_dataset,synthetic,loader,registry,scannet},
-utils/{caching,fixtures,io,native_io}). These tests keep the copies from
+utils/{caching,fixtures,io,native_io,visualization}, train/logging, and the
+.ckpt converters of train/checkpoint.py). These tests keep the copies from
 drifting: for a fixed seed, both give bit-equal arrays, both merge the
-flagship and synthetic configs to the same Config, and a frame cached by
-one loads bit-equal from the other's files."""
+flagship and synthetic configs to the same Config, a frame cached by one
+loads bit-equal from the other's files, both converters give bit-equal
+trees from one reference state_dict, both visualisations bit-equal images
+and both code snapshots the same files."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -16,11 +20,16 @@ from implicit_depth_tpu.data import keyframes as jkeyframes
 from implicit_depth_tpu.data import loader as jloader
 from implicit_depth_tpu.data import mvs_dataset as jmvs
 from implicit_depth_tpu.data import synthetic as jsynthetic
+from implicit_depth_tpu.train import checkpoint as jcheckpoint
+from implicit_depth_tpu.train import logging as jlogging
 from implicit_depth_tpu.utils import caching as jcaching
 from implicit_depth_tpu.utils import fixtures as jfixtures
+from implicit_depth_tpu.utils import visualization as jvisualization
 from implicit_depth_tpu_torch import config
 from implicit_depth_tpu_torch.data import keyframes, loader, mvs_dataset, registry, synthetic
-from implicit_depth_tpu_torch.utils import caching, fixtures
+from implicit_depth_tpu_torch.train import checkpoint
+from implicit_depth_tpu_torch.train import logging as port_logging
+from implicit_depth_tpu_torch.utils import caching, fixtures, visualization
 
 MODEL_CFG = "configs/models/implicit_depth.yaml"
 DATA_CFG = "configs/data/synthetic_smoke.yaml"
@@ -125,3 +134,82 @@ def test_cached_frames_round_trip_bit_equal(tmp_path):
             got = caching.load_cached_output(str(tmp_path / "jax"), frame_id)
             _assert_tree_equal(got, jcaching.load_cached_output(str(tmp_path / "port"), frame_id))
             assert sorted(got) == ["K_s0", "frame_id", "search_depths", "src_ids"]
+
+
+@pytest.mark.parametrize("family", ["bd", "depth"])
+def test_converters_bit_equal(family):
+    """Both copies of convert_reference_{bd,depth}_checkpoint (and with
+    them every convert_* and split_bn) map one reference-layout state_dict
+    to bit-equal (params, batch_stats) trees; so do both convert_resnet18d
+    on a timm resnet18d layout."""
+    import jax
+
+    from implicit_depth_tpu.models.bd_net import BDNet as JBDNet
+    from implicit_depth_tpu.models.depth_net import DepthNet as JDepthNet
+    from tests.test_timm_conversion import ResNet18DTwin
+    from tests.torch_parity import reference_state_dict_from_flax, seeded_variables, to_numpy_tree
+
+    cur, src = jfixtures.synthetic_bd_batch(batch=1, num_src=2, height=64, width=96,
+                                            num_planes=3, num_rays=16, samples_per_ray=8, seed=0)
+    if family == "bd":
+        jnet, init_kwargs = JBDNet(num_src_views=2, num_depth_bins=8, train_bn=True), {"flip": False}
+        fns = (checkpoint.convert_reference_bd_checkpoint,
+               jcheckpoint.convert_reference_bd_checkpoint)
+    else:
+        jnet, init_kwargs = JDepthNet(num_src_views=2, num_depth_bins=8, train_bn=True), {}
+        fns = (checkpoint.convert_reference_depth_checkpoint,
+               jcheckpoint.convert_reference_depth_checkpoint)
+    variables = to_numpy_tree(seeded_variables(
+        lambda key, c, s: jnet.init({"params": key}, c, s, **init_kwargs), cur, src, seed=4))
+    sd = reference_state_dict_from_flax(variables)
+    _assert_tree_equal(fns[0](sd), fns[1](sd))
+    resnet = {f"encoder.{k}": v for k, v in ResNet18DTwin().state_dict().items()}
+    _assert_tree_equal(checkpoint.split_bn(checkpoint.convert_image_encoder(resnet)),
+                       jcheckpoint.split_bn(jcheckpoint.convert_image_encoder(resnet)))
+    assert jax.tree_util.tree_leaves(variables)
+
+
+def test_visualization_bit_equal(tmp_path):
+    rng = np.random.RandomState(2)
+    depth = rng.uniform(0.5, 5.0, (24, 32)).astype(np.float32)
+    depth[3, :5] = np.nan
+    mask = rng.rand(24, 32) > 0.3
+    image = rng.rand(24, 32, 3).astype(np.float32)
+    pairs = [
+        (visualization.colormap_image(depth), jvisualization.colormap_image(depth)),
+        (visualization.colormap_image(depth, mask, vmin=1.0, vmax=4.0, colormap="viridis"),
+         jvisualization.colormap_image(depth, mask, vmin=1.0, vmax=4.0, colormap="viridis")),
+        (visualization.prepare_image_for_logging(depth),
+         jvisualization.prepare_image_for_logging(depth)),
+        (visualization.prepare_image_for_logging(image, normalize=False),
+         jvisualization.prepare_image_for_logging(image, normalize=False)),
+        (visualization.normalize_depth(depth, mask), jvisualization.normalize_depth(depth, mask)),
+        (visualization.normalize_depth(depth, robust=True),
+         jvisualization.normalize_depth(depth, robust=True)),
+    ]
+    for got, ref in pairs:
+        np.testing.assert_array_equal(got, ref)
+    visualization.save_image(str(tmp_path / "port.png"), image)
+    jvisualization.save_image(str(tmp_path / "jax.png"), image)
+    assert (tmp_path / "port.png").read_bytes() == (tmp_path / "jax.png").read_bytes()
+
+
+def test_logger_and_code_snapshot_copies_agree(tmp_path):
+    root = tmp_path / "src"
+    (root / "pkg" / "build").mkdir(parents=True)
+    (root / ".gitignore").write_text("# comment\npkg/build/\n*.tmp\n")
+    for rel in ("a.py", "pkg/b.py", "pkg/c.tmp", "pkg/build/d.so", "e.msgpack"):
+        (root / rel).write_text(rel)
+    trees = []
+    for mod, name in ((port_logging, "port"), (jlogging, "jax")):
+        dest = tmp_path / f"snap_{name}"
+        mod.copy_code_state(str(dest), root=str(root))
+        trees.append(sorted(os.path.relpath(os.path.join(d, f), dest)
+                            for d, _, fs in os.walk(dest) for f in fs))
+        logger = mod.ExperimentLogger(str(tmp_path / "logs"), name, use_tensorboard=False)
+        logger.log_scalars(3, {"a": np.float32(0.5), "b": 2})
+        logger.close()
+    assert trees[0] == trees[1] == [".gitignore", "a.py", "pkg/b.py"]
+    rows = [json.loads((tmp_path / "logs" / n / "metrics.jsonl").read_text()) for n in ("port", "jax")]
+    assert [{k: v for k, v in r.items() if k != "time"} for r in rows] == [
+        {"step": 3, "a": 0.5, "b": 2.0}] * 2

@@ -287,6 +287,7 @@ def test_fit_starts_the_temporal_model_from_a_regression_model(tmp_path, capsys)
     """cli/train_bd.py on the temporal config with
     --lazy_load_weights_from_checkpoint: one step, seeded from a DepthNet."""
     from implicit_depth_tpu_torch.cli import train_bd
+    from implicit_depth_tpu_torch.train.checkpoint import load_weights
 
     reg = init_params(DepthNet(num_src_views=2, num_depth_bins=64, image_encoder_name="tiny"),
                       torch.Generator().manual_seed(1))
@@ -301,7 +302,7 @@ def test_fit_starts_the_temporal_model_from_a_regression_model(tmp_path, capsys)
         "--lazy_load_weights_from_checkpoint", ckpt])
     assert res["step"] == 1 and np.isfinite(res["losses"]["loss"])
     assert "lazy-loaded" in capsys.readouterr().out
-    model = torch.load(res["checkpoint"], map_location="cpu", weights_only=True)["model"]
+    model = load_weights(res["checkpoint"])  # the checkpoint directory's model
     assert model["binary_mlp.s0_fc0.weight"].shape == (128, 66)
     # one AdamW step at lr 1e-4 moves a weight by about 1e-4: the encoder's
     # weights are the regression model's

@@ -39,7 +39,8 @@ def test_train_cli_two_steps_on_cpu(tmp_path):
     assert set(res["losses"]) == {"loss", "ms_loss", "grad_loss", "normals_loss", "mv_loss",
                                   "si_loss", "abs_loss", "inv_abs_loss", "log_l1_loss"}
     assert np.isfinite(res["val"]["val/loss"])
-    ckpt = torch.load(res["checkpoint"], map_location="cpu", weights_only=True)
+    ckpt = torch.load(os.path.join(res["checkpoint"], "state.pt"), map_location="cpu",
+                      weights_only=True)  # the checkpoint directory of step 2
     assert ckpt["step"] == 2 and "decoder.output_head_0.weight" in ckpt["model"]
 
 

@@ -25,8 +25,13 @@
   comparing against the JAX step's parameters would amplify the gradients'
   rounding wherever |g| is near eps.
 - The stepped learning rate, fit for two steps on the synthetic config with
-  --device cpu, and the weight bridge on a train-initialised flax tree.
+  --device cpu (its checkpoint directory: state.pt with model, optimizer,
+  scheduler and step, meta.json, the `last` link), and the weight bridge
+  on a train-initialised flax tree.
 """
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -198,9 +203,15 @@ def test_fit_two_steps_on_cpu(tmp_path):
         "--synthetic_num_frames", "8", "--lazy_load_weights_from_checkpoint", ""])
     assert res["step"] == 2 and np.isfinite(res["losses"]["loss"])
     assert 0.0 <= res["val"]["val/harmonic_iou"] <= 1.0 or np.isnan(res["val"]["val/harmonic_iou"])
-    ckpt = torch.load(res["checkpoint"], map_location="cpu", weights_only=True)
-    assert ckpt["step"] == 2 and set(ckpt) == {"model", "optimizer", "step"}
+    assert os.path.basename(res["checkpoint"]) == "ckpt_00000002"
+    ckpt = torch.load(os.path.join(res["checkpoint"], "state.pt"), map_location="cpu",
+                      weights_only=True)
+    assert ckpt["step"] == 2 and set(ckpt) == {"model", "optimizer", "scheduler", "step"}
     assert "binary_mlp.s3_fc0.weight" in ckpt["model"]
+    meta = json.load(open(os.path.join(res["checkpoint"], "meta.json")))
+    assert meta["step"] == 2 and meta["metrics"]["step"] == 2
+    assert os.readlink(os.path.join(os.path.dirname(res["checkpoint"]), "last")) == \
+        "ckpt_00000002"
 
 
 def test_bridge_takes_a_train_initialised_tree():

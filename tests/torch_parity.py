@@ -129,3 +129,70 @@ def flax_tree_from_port(template, collection: str, tensors: dict):
         return np.ascontiguousarray(v, dtype=np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, template)
+
+
+_BN_REF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_MATCHING_REF = {"conv1": "0", "bn1": "1", "layer1_0": "4.0", "layer1_1": "4.1",
+                 "head_conv1": "5", "head_conv2": "8"}
+
+
+def _ref_module_path(top: str, names: list) -> str:
+    """The reference's module path of a flax module path (the inverse of the
+    JAX package's train/checkpoint.py converters)."""
+    import re
+
+    if top == "encoder":  # timm: s{s}_b{i} -> blocks.{s}.{i}
+        return ".".join(["encoder"] + [re.sub(r"^s(\d+)_b(\d+)$", r"blocks.\1.\2", n)
+                                       for n in names])
+    if top == "matching":
+        return ".".join(["matching_model.net", _MATCHING_REF[names[0]]] + names[1:])
+    if top == "volume_mlp":
+        return "cost_volume.mlp.net." + {"fc1": "2", "fc2": "4"}[names[0]]
+    if top == "binary_mlp":
+        s, li = re.match(r"^s(\d)_fc(\d)$", names[0]).groups()
+        return f"binary_mlp.mlps.s{s}.{(0, 2, 4)[int(li)]}"
+    out = []
+    for n in names:
+        m = re.match(r"^conv_(\d)_(\d)$", n)
+        if top == "cv_encoder" and m:
+            out.append(f"conv_{m.group(1)}.{m.group(2)}")
+        elif n == "downsample":
+            out.append("downsample.0")
+        elif n in ("block0", "block1"):
+            out.append({"block0": "0", "block1": "conv_0"}[n])
+        elif re.match(r"^output_\d$", n):
+            out.append(n + ".0")
+        elif re.match(r"^output_head_\d$", n):
+            out.append(n.replace("output_head_", "output_") + ".1")
+        else:
+            out.append(n)
+    prefix = "cost_volume_net.convs" if top == "cv_encoder" else "depth_decoder.convs"
+    return ".".join([prefix] + out)
+
+
+def reference_state_dict_from_flax(variables_np: dict) -> dict:
+    """A reference-layout (upstream PyTorch) state_dict holding a flax
+    {"params", "batch_stats"} tree of the BD or depth model with the
+    EfficientNetV2-S encoder: what the reference's released .ckpt files
+    hold. The JAX package's convert_reference_*_checkpoint maps it back to
+    the tree (the tests check that round trip)."""
+    from flax import traverse_util
+
+    sd = {}
+    for collection in ("params", "batch_stats"):
+        flat = traverse_util.flatten_dict(variables_np.get(collection, {}))
+        for path, leaf in flat.items():
+            arr = np.asarray(leaf, np.float32)
+            top, names, name = path[0], list(path[1:-1]), path[-1]
+            if names and names[-1] == "BatchNorm_0":
+                sd[f"{_ref_module_path(top, names[:-1])}.{_BN_REF[name]}"] = arr
+                continue
+            if top == "volume_mlp" and name.startswith("fc0_"):
+                key = "cost_volume.mlp.net.0." + ("weight" if name == "fc0_kernel" else "bias")
+                sd[key] = arr.T if name == "fc0_kernel" else arr
+                continue
+            if name == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                name = "weight"
+            sd[f"{_ref_module_path(top, names)}.{name}"] = arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
