@@ -150,6 +150,21 @@ non-zero:
                 all_scenes_metrics.json within 1e-6 relative of a one-process
                 run's; the temporal merge on 2 scenes within 1e-6 of the
                 one-process temporal score.
+26. ar-inference: cli/inference.py (the AR demo's matting) with the
+                flagship temporal BDNet (implicit_depth_temporal.yaml: the
+                prior, bf16, seeded random weights in a port weights file)
+                over 10 synthetic 512x384 frames (synthetic_temporal.yaml)
+                with rendered depths of a 2 m plane with holes, each matte
+                fed back as the next frame's prior on the card: one matte
+                per frame id, finite and in [0, 1], #1 once per frame and
+                #2-#6 never; the prior changes frames 2-10 against a run
+                without it; ar_frame_ms (median wall time of frames 2-10),
+                the forward's share of it, peak memory, the CLI's wall
+                time; GPU vs CPU mattes of a flagship-width f32 temporal
+                BDNet at 128x192 over 3 chained frames (share within
+                AR_ATOL against AR_SHARE); each matte composited in mask
+                mode against a 2 m layer of alpha 1 equals image*m +
+                layer*(1-m); which host image libraries import.
 Then one JSON line with the six kernels' results (with each kernel's
 launches on every path that runs it) and, last, the device line.
 
@@ -2324,6 +2339,224 @@ def phase_test_bd_ranks() -> dict:
         torch.cuda.empty_cache()
 
 
+AR_FRAMES = 10  # frames of the ar-inference CLI run (--max_frames)
+# cli/inference.py on the flagship temporal BDNet: synthetic_temporal.yaml
+# (512x384, val split, 8 views), one more frame than its 16 so that the 8-view
+# tuples give AR_FRAMES frames
+AR_FLAGS = ["--config_file", "configs/models/implicit_depth_temporal.yaml",
+            "--data_config_file", "configs/data/synthetic_temporal.yaml",
+            "--synthetic_num_frames", str(AR_FRAMES + 7), "--max_frames", str(AR_FRAMES)]
+AR_VIRTUAL_DEPTH = 2.0  # the virtual asset's plane, as the reference's default
+# GPU (kernel #1) against CPU (its plain version) over chained frames, f32:
+# the logits agree to f32 sums in another order, but each frame's prior is
+# the previous matte sampled nearest through the rendered depth, and a pixel
+# whose sample point lies within rounding of a texel edge takes the
+# neighbouring texel on one device and not on the other (tests/
+# test_torch_prior.py: up to 1e-3 of the pixels of one warp). So the bound is
+# a share of the matte pixels within AR_ATOL, as DEPTH_SHARE in
+# bd-depth-model.
+AR_ATOL, AR_SHARE = 1e-4, 0.99
+AR_COMPOSITE_ATOL = 1e-6
+
+
+def write_rendered_depths(root: str, frame_ids, h: int, w: int, seed: int = 0) -> str:
+    """The virtual asset's depth for run_inference, <frame id>.npy per frame:
+    a plane at AR_VIRTUAL_DEPTH with holes of zeros, scattered pixels (which
+    the 7x7 max pool fills) and an h/4 x w/4 block whose middle stays empty."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    for fid in frame_ids:
+        depth = np.full((h, w), AR_VIRTUAL_DEPTH, np.float32)
+        depth[rng.rand(h, w) < 0.03] = 0.0
+        depth[h // 8: h // 8 + h // 4, w // 2: w // 2 + w // 4] = 0.0
+        np.save(os.path.join(root, f"{fid}.npy"), depth)
+    return root
+
+
+def ar_gpu_vs_cpu(net, ds, renders: str, out_dir: str, frames: int) -> dict:
+    """run_inference with the prior over `frames` chained frames of `ds`, on
+    the CPU (plain versions) and then on the card (kernel #1) with the same
+    net: the share of matte pixels within AR_ATOL, the largest difference,
+    and #1's launches on the card."""
+    from implicit_depth_tpu_torch.apps.inference import run_inference
+    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
+
+    kw = dict(rendered_depth_load_dir=renders, use_prior=True, max_frames=frames)
+    ref = [np.load(p) for p in run_inference(net.cpu(), ds, os.path.join(out_dir, "cpu"), **kw)]
+    before = fused_metadata_volume.launches
+    got = [np.load(p) for p in run_inference(net.cuda(), ds, os.path.join(out_dir, "gpu"), **kw)]
+    diff = np.abs(np.stack(got) - np.stack(ref))
+    return {"share": float((diff <= AR_ATOL).mean()), "max_abs_err": float(diff.max()),
+            "frame_shares": [float((d <= AR_ATOL).mean()) for d in diff],
+            "launches": fused_metadata_volume.launches - before}
+
+
+def _host_libraries() -> str:
+    import importlib
+
+    found = []
+    for name in ("PIL", "cv2", "h5py", "pandas"):
+        try:
+            importlib.import_module(name)
+            found.append(f"{name} yes")
+        except ImportError:
+            found.append(f"{name} no")
+    return ", ".join(found)
+
+
+def phase_ar_inference(card: str) -> dict:
+    """cli/inference.py (the AR demo's matting) with the flagship temporal
+    BDNet (bf16, seeded weights saved as a port weights file) over 10
+    synthetic 512x384 frames with rendered depths and the prior fed back;
+    then, on frames rendered beforehand, run_inference with and without the
+    prior, one forward timed, the GPU against the CPU at 128x192 in f32, and
+    each matte composited in numpy."""
+    import shutil
+    import tempfile
+
+    from implicit_depth_tpu_torch.apps.composite import DEFAULT_VIRTUAL_RGB, composite_frame
+    from implicit_depth_tpu_torch.apps.inference import load_rendered_depth, run_inference
+    from implicit_depth_tpu_torch.cli import inference as cli_inference
+    from implicit_depth_tpu_torch.cli.test_bd import load_bd_net
+    from implicit_depth_tpu_torch.config import parse_config
+    from implicit_depth_tpu_torch.data.mvs_dataset import collate, reverse_imagenet_normalize
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.train.loop import build_dataset
+
+    print(f"ar-inference: host libraries of the AR path's image and capture I/O: "
+          f"{_host_libraries()}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="ar_inference_")
+    try:
+        weights = os.path.join(tmp, "temporal.pt")
+        torch.save(flagship_net(torch.float32, use_prior=True).state_dict(), weights)
+        renders = os.path.join(tmp, "renders")
+        flags = _repo_paths(AR_FLAGS) + ["--load_weights_from_checkpoint", weights,
+                                         "--rendered_depth_map_load_dir", renders,
+                                         "--output_base_path", os.path.join(tmp, "out")]
+        cfg = parse_config(flags)[0]
+        ds = build_dataset(cfg, cfg.split, "bd", pass_frame_id=True)
+        ids = [t.split(" ")[1] for t in ds.frame_tuples[:AR_FRAMES]]
+        write_rendered_depths(renders, ids, ds.depth_height, ds.depth_width)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        res = cli_inference.main(flags)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        names = [os.path.basename(p) for p in res["saved"]]
+        expected = (AR_FRAMES, 0, 0, 0, 0, 0)
+        if names != [f"{int(i):05d}.npy" for i in ids] or counts != expected:
+            raise AssertionError(f"ar-inference: mattes {names} for frames {ids}, kernel launches "
+                                 f"#1-#6 {counts}, expected {expected}")
+        mattes = [np.load(p) for p in res["saved"]]
+        for m in mattes:
+            if m.shape != (ds.depth_height, ds.depth_width) or not np.isfinite(m).all() or \
+                    m.min() < 0.0 or m.max() > 1.0:
+                raise AssertionError(f"ar-inference: a matte of shape {m.shape}, range "
+                                     f"[{np.nanmin(m)}, {np.nanmax(m)}]")
+        frame_ms = np.asarray(res["frame_ms"])
+
+        # the same frames rendered beforehand (the synthetic renderer is no
+        # capture's cost): with and without the prior on the CLI's weights
+        for i in range(ds.num_frames):
+            ds.get_frame("scene0", str(i))
+        net = load_bd_net(cfg, "cuda")
+        kw = dict(rendered_depth_load_dir=renders, sigmoid_multiplier=cfg.bd_sigmoid_multiplier,
+                  max_frames=AR_FRAMES)
+        pre_ms: list = []
+        prior = [np.load(p) for p in run_inference(net, ds, os.path.join(tmp, "prior"),
+                                                   use_prior=True, frame_ms=pre_ms, **kw)]
+        plain = [np.load(p) for p in run_inference(net, ds, os.path.join(tmp, "noprior"), **kw)]
+        item_ms = []  # the dataset item and collate of a frame, on the host
+        for i in range(1, AR_FRAMES):
+            t0 = time.perf_counter()
+            collate([ds[i]])
+            item_ms.append((time.perf_counter() - t0) * 1e3)
+        effect = [float(np.abs(a - b).max()) for a, b in zip(prior, plain)]
+        same_as_cli = max(float(np.abs(a - b).max()) for a, b in zip(prior, mattes))
+        if min(effect[1:]) <= 1e-3:
+            raise AssertionError(f"ar-inference: the prior did not change the mattes of frames "
+                                 f"2-{AR_FRAMES}: max differences {effect}")
+
+        # one forward of frame 2 with frame 1's matte as its prior
+        cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
+                    for d in collate([ds[1]]))
+        cur["rendered_depth"] = torch.from_numpy(load_rendered_depth(
+            renders, ids[1], ds.depth_height, ds.depth_width))[None].cuda()
+        cur["prior_prediction"] = torch.from_numpy(prior[0])[None, ..., None].cuda()
+        cur["prior_cam_T_world"] = torch.as_tensor(collate([ds[0]])[0]["cam_T_world"]).cuda()
+        fwd_ms = []
+        with torch.inference_mode():
+            for _ in range(12):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = net.forward_val(cur, src)
+                torch.sigmoid(out["pred_0"].float()).cpu()
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        forward_ms = float(np.median(fwd_ms[2:]))
+        del net, cur, src, out
+        torch.cuda.empty_cache()
+
+        # GPU against CPU, f32, 128x192, 3 chained frames
+        small = SyntheticDataset(num_frames=3 + 7, num_views=8, image_height=128, image_width=192,
+                                 split="val", get_bd_info=True, pass_frame_id=True)
+        small_ids = [t.split(" ")[1] for t in small.frame_tuples[:3]]
+        small_renders = write_rendered_depths(os.path.join(tmp, "small_renders"), small_ids,
+                                              small.depth_height, small.depth_width, seed=1)
+        model = ar_gpu_vs_cpu(flagship_net(torch.float32, use_prior=True), small, small_renders,
+                              os.path.join(tmp, "small"), 3)
+        if model["share"] < AR_SHARE or model["launches"] != 3:
+            raise AssertionError(f"ar-inference: GPU vs CPU chained mattes: {model}")
+
+        # each matte composited in mask mode against the 2 m virtual layer
+        layer = np.empty((ds.depth_height, ds.depth_width, 4), np.float32)
+        layer[..., :3] = DEFAULT_VIRTUAL_RGB
+        layer[..., 3] = 1.0
+        worst = 0.0
+        for i, m in enumerate(mattes):
+            image = np.clip(reverse_imagenet_normalize(ds[i][0]["image"][::2, ::2]), 0.0, 1.0)
+            out = composite_frame(image, layer, mode="mask", occlusion_matte=m)
+            ref = image * m[..., None] + layer[..., :3] * (1.0 - m[..., None])
+            worst = max(worst, float(np.abs(out - ref).max()))
+        if worst > AR_COMPOSITE_ATOL:
+            raise AssertionError(f"ar-inference: composite differs from image*m + layer*(1-m) "
+                                 f"by {worst:.3e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    ar_frame_ms = float(np.median(frame_ms[1:]))
+    pre_frame_ms = float(np.median(pre_ms[1:]))
+    occluded = float(np.mean([(m > 0.5).mean() for m in mattes]))
+    print(f"ar-inference: cli/inference.py, flagship temporal BDNet (EfficientNetV2-S, K=7, D=64, "
+          f"prior, bf16, seeded random weights), {AR_FRAMES} synthetic 512x384 frames, rendered "
+          f"depths with holes, the prior fed back on the card: launches #1-#6 {counts}; mattes "
+          f"{ds.depth_width}x{ds.depth_height} in [0, 1], share > 0.5 {occluded:.3f}; the prior "
+          f"moves frames 2-{AR_FRAMES} by {min(effect[1:]):.3f}-{max(effect[1:]):.3f} (frame 1: "
+          f"{effect[0]:.1e}); the run on frames rendered beforehand within {same_as_cli:.1e} of "
+          f"the CLI's", flush=True)
+    print(f"ar-inference: ar_frame_ms {ar_frame_ms:.2f} (median of frames 2-{AR_FRAMES}, wall time "
+          f"to the matte's readback, the synthetic renderer's ~2 renders a new frame included; "
+          f"all {', '.join(f'{t:.1f}' for t in frame_ms)}); {pre_frame_ms:.2f} ms on frames "
+          f"rendered beforehand; forward_val + sigmoid + readback {forward_ms:.2f} ms (median, "
+          f"synchronised): {forward_ms / ar_frame_ms:.1%} of ar_frame_ms, "
+          f"{forward_ms / pre_frame_ms:.1%} of the pre-rendered frame, whose dataset item and "
+          f"collate take {np.median(item_ms):.2f} ms (host, median); peak device memory "
+          f"{peak_gib:.2f} GiB; CLI wall time {cli_s:.1f} s; on {card}", flush=True)
+    print(f"ar-inference: GPU (kernel) vs CPU (plain), f32 flagship-width temporal BDNet at "
+          f"128x192, 3 chained frames: {model['share']:.4%} of the matte pixels within {AR_ATOL} "
+          f"(bound {AR_SHARE:.0%}; per frame {', '.join(f'{x:.4%}' for x in model['frame_shares'])}"
+          f"), max abs err {model['max_abs_err']:.3e}; composite in mask mode against the 2 m "
+          f"layer within {worst:.1e} of image*m + layer*(1-m) (bound {AR_COMPOSITE_ATOL})",
+          flush=True)
+    return {"launches": counts[0], "ar_frame_ms": ar_frame_ms, "pre_frame_ms": pre_frame_ms,
+            "forward_ms": forward_ms, "item_ms": float(np.median(item_ms)), "peak_gib": peak_gib,
+            "cli_s": cli_s}
+
+
 
 def main(argv=None) -> int:
     import argparse
@@ -2345,7 +2578,7 @@ def main(argv=None) -> int:
     if args.ddp_rank is not None:
         ddp_rank_main(args.ddp_rank, args.ddp_world, args.ddp_port, args.ddp_out)
         return 0
-    phase_device()
+    card = phase_device()
     phase_build()
     kern = phase_kernel()
     kern_bwd = phase_kernel_bwd()
@@ -2371,6 +2604,7 @@ def main(argv=None) -> int:
     fit_res = phase_fit_resume()
     ddp_res = phase_ddp_train()
     phase_test_bd_ranks()
+    ar_res = phase_ar_inference(card)
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -2397,6 +2631,7 @@ def main(argv=None) -> int:
                         "temporal-train": temporal_train_res["launches"][i]}
     kernels[0]["paths"]["temporal-main"] = temporal_res["launches"]
     kernels[0]["paths"]["bd-depth"] = depth_res["launches"]
+    kernels[0]["paths"]["ar-inference"] = ar_res["launches"]
     for i in (2, 3):
         kernels[i]["paths"]["bd-dot-train"] = dot_train_res["launches"][i]
     for i, row in enumerate(kernels[:4]):

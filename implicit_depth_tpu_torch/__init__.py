@@ -10,12 +10,14 @@ package's NHWC tensors; the conv stacks inside the models run in NCHW.
 
 The port imports nothing of the JAX package. The host-side numpy modules
 it needs are copies with only their imports changed (`config`, `data/`,
-`utils/`), each naming its original.
+`utils/`, `apps/{composite,vdr_sequence}.py`), each naming its original.
 
 Paths: the dense occlusion eval (`BDNet.forward_val`, `cli/test_bd.py`) and
 BD training (`BDNet.forward`, `train/state.py`, `train/loop.py::fit`,
 `cli/train_bd.py`, with checkpoints and resume in `train/checkpoint.py`
-and data parallelism over processes in `parallel/distributed.py`). Their
+and data parallelism over processes in `parallel/distributed.py`), and the
+AR demo's matting with the prior fed back (`apps/inference.py`,
+`cli/inference.py`; compositing in `cli/composite.py`). Their
 hand-written CUDA kernels (csrc/, built with nvcc
 by ops/cuda_build.py at the first CUDA call): the fused metadata volume
 forward and backward (`ops/fused_volume.py`) and the ray-head MLP forward

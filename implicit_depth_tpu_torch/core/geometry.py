@@ -4,10 +4,14 @@ Counterpart of implicit_depth_tpu/core/geometry.py. The pose and
 intrinsics products are f32 at full precision: on the GPU the caller keeps
 `torch.backends.cuda.matmul.allow_tf32 = False` (PyTorch's default), so
 `einsum` runs in true f32 like the JAX package's `Precision.HIGHEST`.
+
+`rotx`, `roty`, `rotz` and `qvec2rotmat` are host-side numpy, copies of
+the JAX module's (the data loaders' world-frame fix-ups).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -92,3 +96,30 @@ def pose_distance(pose_44: Tensor):
 def normalize(v: Tensor, dim: int = -1, eps: float = 1e-12) -> Tensor:
     """L2-normalise along `dim`, with the norm clamped at `eps`."""
     return v / torch.clamp(torch.linalg.norm(v, dim=dim, keepdim=True), min=eps)
+
+
+def rotx(t: float) -> np.ndarray:
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], dtype=np.float64)
+
+
+def roty(t: float) -> np.ndarray:
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=np.float64)
+
+
+def rotz(t: float) -> np.ndarray:
+    c, s = np.cos(t), np.sin(t)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], dtype=np.float64)
+
+
+def qvec2rotmat(qvec) -> np.ndarray:
+    """Quaternion (w, x, y, z) to rotation matrix (utils/geometry_utils.py:198-220)."""
+    w, x, y, z = qvec
+    return np.array(
+        [
+            [1 - 2 * y**2 - 2 * z**2, 2 * x * y - 2 * w * z, 2 * z * x + 2 * w * y],
+            [2 * x * y + 2 * w * z, 1 - 2 * x**2 - 2 * z**2, 2 * y * z - 2 * w * x],
+            [2 * z * x - 2 * w * y, 2 * y * z + 2 * w * x, 1 - 2 * x**2 - 2 * y**2],
+        ]
+    )

@@ -1,11 +1,11 @@
 """Dataset registry (parity: utils/dataset_utils.py:15-151).
 
-Copy of implicit_depth_tpu/data/registry.py for the datasets the port has
-copies of: scannet and synthetic. The others (hypersim, vdr, 7scenes,
-colmap, arkit, scanniverse) import geometry helpers of the JAX package
-(`rotx`, `qvec2rotmat` from core/geometry.py) and are not copied yet.
+Copy of implicit_depth_tpu/data/registry.py with only its imports changed
+(the port imports nothing of the JAX package).
 
 get_dataset(name, split_filepath, single_debug_scan_id) -> (class, scans).
+Names: scannet, synthetic (new fixture); hypersim, vdr, 7scenes, colmap,
+arkit, scanniverse register here as their loaders land.
 """
 
 from __future__ import annotations
@@ -13,17 +13,6 @@ from __future__ import annotations
 from typing import Optional
 
 from implicit_depth_tpu_torch.utils.io import readlines
-
-# dataset name -> the JAX package's module that still has to be copied
-NOT_PORTED = {
-    "hypersim": "implicit_depth_tpu/data/hypersim.py",
-    "vdr": "implicit_depth_tpu/data/vdr.py",
-    "7scenes": "implicit_depth_tpu/data/seven_scenes.py",
-    "sevenscenes": "implicit_depth_tpu/data/seven_scenes.py",
-    "colmap": "implicit_depth_tpu/data/colmap.py",
-    "arkit": "implicit_depth_tpu/data/arkit.py",
-    "scanniverse": "implicit_depth_tpu/data/scanniverse.py",
-}
 
 
 def get_dataset(name: str, split_filepath: Optional[str] = None,
@@ -35,9 +24,24 @@ def get_dataset(name: str, split_filepath: Optional[str] = None,
     elif name == "synthetic":
         from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
         cls = SyntheticDataset
-    elif name in NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset '{name}' is not in the port yet: {NOT_PORTED[name]} has to be copied")
+    elif name == "hypersim":
+        from implicit_depth_tpu_torch.data.hypersim import HypersimDataset
+        cls = HypersimDataset
+    elif name == "vdr":
+        from implicit_depth_tpu_torch.data.vdr import VDRDataset
+        cls = VDRDataset
+    elif name in ("7scenes", "sevenscenes"):
+        from implicit_depth_tpu_torch.data.seven_scenes import SevenScenesDataset
+        cls = SevenScenesDataset
+    elif name == "colmap":
+        from implicit_depth_tpu_torch.data.colmap import ColmapDataset
+        cls = ColmapDataset
+    elif name == "arkit":
+        from implicit_depth_tpu_torch.data.arkit import ARKitDataset
+        cls = ARKitDataset
+    elif name == "scanniverse":
+        from implicit_depth_tpu_torch.data.scanniverse import ScanniverseDataset
+        cls = ScanniverseDataset
     else:
         raise ValueError(f"Unknown dataset '{name}'")
 

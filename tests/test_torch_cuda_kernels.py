@@ -56,6 +56,8 @@ The training infrastructure (tiny models): two ranks on the one card
 norm to 1e-5 and the BD and regression steps to the CPU test's bounds; fit on
 the card resumed from its step-2 checkpoint against the uninterrupted run:
 the same batches, and chip_smoke.py's fit-resume bounds.
+The AR demo path (a tiny temporal model): run_inference with the prior fed
+back on the card against the CPU, at chip_smoke.py's ar-inference bound.
 """
 
 import numpy as np
@@ -766,3 +768,25 @@ def test_fit_resume_on_the_card(cuda, tmp_path):
     k = chip_smoke.RESUME_SPREAD
     assert got[0] <= max(chip_smoke.MODEL_GRAD_L2, k * spread[0]), (got, spread)
     assert got[1][0] <= max(chip_smoke.MODEL_GRAD_LEAF, k * spread[1][0]), (got, spread)
+
+
+def test_ar_inference_with_the_prior_on_the_card_matches_cpu(cuda, tmp_path):
+    """Tiny temporal BDNet, run_inference with the prior over 3 chained
+    frames with hole-filled rendered depths: #1 launches once per frame on
+    the card, and the card's mattes match the CPU's (plain versions) at
+    chip_smoke.py's AR_SHARE of the pixels within AR_ATOL (the prior is
+    sampled nearest; see there)."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+    from implicit_depth_tpu_torch.models.bd_net import BDNet
+    from implicit_depth_tpu_torch.weights import init_params
+
+    ds = SyntheticDataset(num_frames=5, num_views=3, split="val", get_bd_info=True,
+                          image_height=64, image_width=96, pass_frame_id=True)
+    renders = chip_smoke.write_rendered_depths(str(tmp_path / "renders"), ["2", "3", "4"],
+                                               ds.depth_height, ds.depth_width)
+    net = init_params(BDNet(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8,
+                            use_prior=True), torch.Generator().manual_seed(0)).eval()
+    res = chip_smoke.ar_gpu_vs_cpu(net, ds, renders, str(tmp_path / "out"), 3)
+    assert res["launches"] == 3
+    assert res["share"] >= chip_smoke.AR_SHARE, res

@@ -6,7 +6,9 @@ drifting: for a fixed seed, both give bit-equal arrays, both merge the
 flagship and synthetic configs to the same Config, a frame cached by one
 loads bit-equal from the other's files, both converters give bit-equal
 trees from one reference state_dict, both visualisations bit-equal images
-and both code snapshots the same files."""
+and both code snapshots the same files; the registries resolve the same
+names. tests/test_torch_datasets.py holds the capture loaders and tuple
+generation to theirs."""
 
 import dataclasses
 import json
@@ -19,6 +21,7 @@ from implicit_depth_tpu import config as jconfig
 from implicit_depth_tpu.data import keyframes as jkeyframes
 from implicit_depth_tpu.data import loader as jloader
 from implicit_depth_tpu.data import mvs_dataset as jmvs
+from implicit_depth_tpu.data import registry as jregistry
 from implicit_depth_tpu.data import synthetic as jsynthetic
 from implicit_depth_tpu.train import checkpoint as jcheckpoint
 from implicit_depth_tpu.train import logging as jlogging
@@ -105,11 +108,22 @@ def test_config_copy_merges_the_same():
 
 
 def test_registry_names_what_is_not_copied():
+    """Every name the JAX registry resolves resolves in the port to the
+    port's copy of that class (the same name, in the port's module of the
+    same path); an unknown name still raises ValueError in both."""
+    names = ("scannet", "synthetic", "hypersim", "vdr", "7scenes", "sevenscenes", "colmap",
+             "arkit", "scanniverse", "ScanNet")
+    for name in names:
+        jcls, _ = jregistry.get_dataset(name)
+        cls, _ = registry.get_dataset(name)
+        assert cls.__name__ == jcls.__name__
+        assert cls.__module__ == jcls.__module__.replace("implicit_depth_tpu.",
+                                                         "implicit_depth_tpu_torch.")
     assert registry.get_dataset("synthetic")[0] is synthetic.SyntheticDataset
-    with pytest.raises(NotImplementedError, match="hypersim"):
-        registry.get_dataset("hypersim")
-    with pytest.raises(ValueError):
-        registry.get_dataset("no_such_dataset")
+    assert registry.get_dataset("vdr", None, "cap0")[1] == ["cap0"]
+    for get in (jregistry.get_dataset, registry.get_dataset):
+        with pytest.raises(ValueError):
+            get("no_such_dataset")
 
 
 def test_cached_frames_round_trip_bit_equal(tmp_path):

@@ -1,9 +1,9 @@
 """The port runs where JAX is not installed and imports nothing of the JAX
 package: every module of implicit_depth_tpu_torch and chip_smoke.py import
 with `jax`, `flax` and `implicit_depth_tpu` blocked, and afterwards no
-implicit_depth_tpu.* module is loaded (chip_smoke.py's path also without
-yaml and PIL); chip_smoke.py refuses to run without a CUDA device or
-outside the repository."""
+implicit_depth_tpu.* module is loaded (chip_smoke.py's path, the AR demo
+path and the capture loaders also without yaml and PIL); chip_smoke.py
+refuses to run without a CUDA device or outside the repository."""
 
 import os
 import shutil
@@ -46,7 +46,15 @@ for name in ("chip_smoke", "implicit_depth_tpu_torch.data.synthetic",
              "implicit_depth_tpu_torch.train.loop", "implicit_depth_tpu_torch.train.checkpoint",
              "implicit_depth_tpu_torch.train.logging", "implicit_depth_tpu_torch.parallel.distributed",
              "implicit_depth_tpu_torch.cli.test_bd", "implicit_depth_tpu_torch.cli.train_bd",
-             "implicit_depth_tpu_torch.cli.convert_checkpoint"):
+             "implicit_depth_tpu_torch.cli.convert_checkpoint",
+             # the AR demo path and the capture loaders
+             "implicit_depth_tpu_torch.apps.inference", "implicit_depth_tpu_torch.apps.composite",
+             "implicit_depth_tpu_torch.apps.vdr_sequence", "implicit_depth_tpu_torch.cli.inference",
+             "implicit_depth_tpu_torch.cli.composite", "implicit_depth_tpu_torch.data.registry",
+             "implicit_depth_tpu_torch.data.hypersim", "implicit_depth_tpu_torch.data.vdr",
+             "implicit_depth_tpu_torch.data.seven_scenes", "implicit_depth_tpu_torch.data.colmap",
+             "implicit_depth_tpu_torch.data.arkit", "implicit_depth_tpu_torch.data.scanniverse",
+             "implicit_depth_tpu_torch.data.tuples", "implicit_depth_tpu_torch.data.samplers"):
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.startswith("implicit_depth_tpu.")]
 print("ok")
@@ -62,7 +70,7 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 63  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 77  # every module of the port was imported
 
 
 def test_chip_smoke_imports_without_yaml_or_pil():
