@@ -3,10 +3,10 @@ depth from the binary oracle, and the BD training forward.
 
 Counterpart of implicit_depth_tpu/models/bd_net.py for the paths that
 `forward_val`, `forward_infer_depth` and `__call__` (here `forward`) run:
-image encoder (EfficientNetV2-S or the tiny test encoder), the ResNet
-matching encoder on all views, a cost volume, CVEncoder -> DecoderPP, and
-the query heads: the scale-0 head once per rendered-depth plane (eval),
-twelve times per pixel in a bisection over depth (`forward_infer_depth`),
+image encoder, matching encoder on all views, a cost volume, CVEncoder ->
+decoder (DecoderPP or SkipDecoder), and the query heads: the scale-0 head
+once per rendered-depth plane (eval), twelve times per pixel in a
+bisection over depth (`forward_infer_depth`),
 or every scale at sparse rays through `factored` and ops/ray_head.py
 (training). Volumes (`feature_volume_type`), as the JAX package branches:
 - `mlp_feature_volume`: the metadata volume through ops/fused_volume.py
@@ -21,8 +21,10 @@ With `use_prior` the heads take one more input, the temporal prior: in
 eval the previous frame's prediction warped through the rendered depth
 (`sample_prior`, -1 where there is none), in training the augmented
 ground-truth occupancy (`augment_prior`, from uniform draws the caller
-hands in). The FPN matching encoder and the skip decoder are not ported
-yet (train/loop.py::build_net refuses configs that need them).
+hands in). The encoders and the decoder are chosen by name as in the JAX
+package (models/depth_net.py: `image_encoder`, `matching_encoder`,
+`depth_decoder`); both decoders give each scale NUM_CH_DEC channels, so
+the query heads are the same.
 
 Flip augmentation follows the reference: images flipped, matching features
 unflipped before the volume, the volume re-flipped before the CV encoder,
@@ -42,10 +44,9 @@ import torch.nn as nn
 
 from implicit_depth_tpu_torch.core import geometry
 from implicit_depth_tpu_torch.core.sampling import grid_sample
-from implicit_depth_tpu_torch.models.decoders import NUM_CH_DEC, BinaryMLPNetwork, CVEncoder, DecoderPP
-from implicit_depth_tpu_torch.models.depth_net import VOLUME_TYPES
-from implicit_depth_tpu_torch.models.image_encoders import EfficientNetV2S, TinyEncoder
-from implicit_depth_tpu_torch.models.matching import ResnetMatchingEncoder
+from implicit_depth_tpu_torch.models.decoders import NUM_CH_DEC, BinaryMLPNetwork, CVEncoder
+from implicit_depth_tpu_torch.models.depth_net import (VOLUME_TYPES, depth_decoder, image_encoder,
+                                                       matching_encoder)
 from implicit_depth_tpu_torch.models.volume_mlp import MetadataVolumeMLP
 from implicit_depth_tpu_torch.volumes import cost_volume as cv
 
@@ -93,6 +94,8 @@ class BDNet(nn.Module):
         self,
         image_encoder_name: str = "efficientnet",
         feature_volume_type: str = "mlp_feature_volume",
+        depth_decoder_name: str = "unet_pp",
+        matching_encoder_type: str = "resnet",
         matching_scale: int = 1,
         matching_feature_dims: int = 16,
         num_depth_bins: int = 64,
@@ -115,19 +118,16 @@ class BDNet(nn.Module):
         self.max_matching_depth = max_matching_depth
         self.compute_dtype = compute_dtype
 
-        if "efficientnet" in image_encoder_name:
-            self.encoder = EfficientNetV2S()
-        elif "tiny" in image_encoder_name:
-            self.encoder = TinyEncoder()
-        else:
-            raise NotImplementedError(f"image encoder {image_encoder_name} is not ported")
+        self.encoder = image_encoder(image_encoder_name)
         enc_ch = list(self.encoder.num_ch_enc)
-        self.matching = ResnetMatchingEncoder(num_ch_out=matching_feature_dims)
+        self.matching = matching_encoder(matching_encoder_type, matching_feature_dims)
         if feature_volume_type == "mlp_feature_volume":
             self.volume_mlp = MetadataVolumeMLP(num_src_views=num_src_views,
                                                 matching_dim=matching_feature_dims)
         self.cv_encoder = CVEncoder(num_depth_bins, enc_ch[matching_scale:])
-        self.decoder = DecoderPP(enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs))
+        self.decoder = depth_decoder(depth_decoder_name,
+                                     enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs),
+                                     regression=False)
         # fc0 rows: the query depth, the features [, the prior]
         self.binary_mlp = BinaryMLPNetwork([NUM_CH_DEC[s] + 1 + int(use_prior) for s in SCALES])
 

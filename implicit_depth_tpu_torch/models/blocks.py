@@ -3,9 +3,11 @@
 Counterpart of implicit_depth_tpu/models/blocks.py:
 - BasicBlock: norm-free residual block, bias convs, LeakyReLU(0.2);
 - DoubleBasicBlock: BasicBlock x num_repeats;
+- MLP: Linear layers with LeakyReLU(0.01) between them, on the last axis;
 - instance_norm: nn.InstanceNorm2d defaults, f32 statistics;
-- bilinear x2 upsample, bilinear resize (antialiased when downsampling,
-  like jax.image.resize), max pool with "same" padding.
+- bilinear and nearest x2 upsamples, bilinear resize (antialiased when
+  downsampling, like jax.image.resize), max pool with "same" padding,
+  sigmoid_custom.
 """
 
 from __future__ import annotations
@@ -59,6 +61,27 @@ class DoubleBasicBlock(nn.Module):
         return x
 
 
+class MLP(nn.Module):
+    """Linear layers `fc{i}` to the widths of channel_list, LeakyReLU(0.01)
+    after each, the last one's left out with disable_final_activation."""
+
+    def __init__(self, in_channels: int, channel_list, disable_final_activation: bool = False):
+        super().__init__()
+        self.num_layers = len(channel_list)
+        self.disable_final_activation = disable_final_activation
+        cin = in_channels
+        for i, ch in enumerate(channel_list):
+            self.add_module(f"fc{i}", nn.Linear(cin, ch))
+            cin = ch
+
+    def forward(self, x: Tensor) -> Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+            if i < self.num_layers - 1 or not self.disable_final_activation:
+                x = F.leaky_relu(x, 0.01)
+        return x
+
+
 def instance_norm(x_nchw: Tensor, eps: float = 1e-5) -> Tensor:
     """Per-(sample, channel) normalisation over H, W; no affine, biased
     variance, statistics in f32."""
@@ -72,6 +95,12 @@ def upsample2x_bilinear(x_nchw: Tensor) -> Tensor:
     return F.interpolate(x_nchw, scale_factor=2, mode="bilinear", align_corners=False)
 
 
+def upsample2x_nearest(x_nchw: Tensor) -> Tensor:
+    """Output pixel i takes input pixel i // 2: what jax.image.resize's
+    "nearest" gives at an exact factor of 2."""
+    return F.interpolate(x_nchw, scale_factor=2, mode="nearest")
+
+
 def resize_bilinear(x_nchw: Tensor, out_h: int, out_w: int) -> Tensor:
     """Bilinear resize; antialiased when downsampling, as jax.image.resize is."""
     return F.interpolate(x_nchw, size=(out_h, out_w), mode="bilinear",
@@ -81,3 +110,7 @@ def resize_bilinear(x_nchw: Tensor, out_h: int, out_w: int) -> Tensor:
 def max_pool_same(x_nchw: Tensor, window: int, stride: int = 1) -> Tensor:
     """F.max_pool2d(window, stride, padding=window//2)."""
     return F.max_pool2d(x_nchw, window, stride, padding=window // 2)
+
+
+def sigmoid_custom(x: Tensor, multiplier: float = 1.0) -> Tensor:
+    return torch.sigmoid(multiplier * x)

@@ -1,7 +1,8 @@
 """Cost-volume encoder, U-Net++ decoder and binary query head (torch).
 
 Counterpart of implicit_depth_tpu/models/decoders.py (CVEncoder, DecoderPP
-with or without its 1x1 output heads, BinaryMLPNetwork). Conv stacks are NCHW;
+with or without its 1x1 output heads, ConvBlockELU, SkipDecoder with or
+without its regression heads, BinaryMLPNetwork). Conv stacks are NCHW;
 the query head works on the last axis. DecoderPP computes only the final
 column's output per scale, the one the reference keeps.
 """
@@ -14,7 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from implicit_depth_tpu_torch.models.blocks import BasicBlock, DoubleBasicBlock, upsample2x_bilinear
+from implicit_depth_tpu_torch.models.blocks import (BasicBlock, DoubleBasicBlock, upsample2x_bilinear,
+                                                    upsample2x_nearest)
 
 Tensor = torch.Tensor
 
@@ -94,6 +96,60 @@ class DecoderPP(nn.Module):
                         head = getattr(self, f"output_head_{i}")(head)
                     outputs[i] = head
             prev = col[::-1] + prev[max_i + 1:]
+        return outputs
+
+
+class ConvBlockELU(nn.Module):
+    """Two 3x3 convs (conv1, conv2, with biases), each followed by ELU."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, features, 3, padding=1)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return F.elu(self.conv2(F.elu(self.conv1(x))))
+
+
+class SkipDecoder(nn.Module):
+    """Upsample-and-concatenate decoder over 5 encoder features with channels
+    `enc_channels`. Block n = 1..4 is `block{n}_pre` (ConvBlockELU to
+    (256, 128, 64, 64)[n-1] channels), an exact 2x nearest upsample, the
+    concatenation with enc_feats[-(n+1)] and `block{n}_post`; its output is
+    the features of scale 4 - n, whose widths are NUM_CH_DEC. With
+    regression_heads each scale also gets `log_depth_{s}` from 1x1 convs
+    `out{n}_{0,1,2}` (128, ELU, 128, ELU, 1)."""
+
+    OUT_CH = (256, 128, 64, 64)
+
+    def __init__(self, enc_channels: Sequence[int], regression_heads: bool = False):
+        super().__init__()
+        self.regression_heads = regression_heads
+        cin = enc_channels[-1]
+        for bi, ch in enumerate(self.OUT_CH):
+            n = bi + 1
+            self.add_module(f"block{n}_pre", ConvBlockELU(cin, ch))
+            self.add_module(f"block{n}_post", ConvBlockELU(ch + enc_channels[-(bi + 2)], ch))
+            if regression_heads:
+                self.add_module(f"out{n}_0", nn.Conv2d(ch, 128, 1))
+                self.add_module(f"out{n}_1", nn.Conv2d(128, 128, 1))
+                self.add_module(f"out{n}_2", nn.Conv2d(128, 1, 1))
+            cin = ch
+
+    def forward(self, enc_feats: Sequence[Tensor]) -> dict:
+        x = enc_feats[-1]
+        outputs: dict = {}
+        for bi in range(len(self.OUT_CH)):
+            n = bi + 1
+            x = upsample2x_nearest(getattr(self, f"block{n}_pre")(x))
+            x = torch.cat([x, enc_feats[-(bi + 2)].to(x.dtype)], dim=1)
+            x = getattr(self, f"block{n}_post")(x)
+            scale = 3 - bi
+            outputs[scale] = x
+            if self.regression_heads:
+                h = F.elu(getattr(self, f"out{n}_0")(x))
+                h = F.elu(getattr(self, f"out{n}_1")(h))
+                outputs[f"log_depth_{scale}"] = getattr(self, f"out{n}_2")(h)
         return outputs
 
 

@@ -1,17 +1,24 @@
 """DepthNet — the SimpleRecon-style depth regression model (torch).
 
 Counterpart of implicit_depth_tpu/models/depth_net.py: the trunk of BDNet
-(image encoder, ResNet matching encoder on all views, a cost volume over the
-plane sweep, CVEncoder, U-Net++), decoding straight to log-depth maps at four
-scales through DecoderPP's 1x1 heads. Ported volumes:
+(image encoder, matching encoder on all views, a cost volume over the plane
+sweep, CVEncoder, decoder), decoding straight to log-depth maps at four
+scales through DecoderPP's 1x1 heads or SkipDecoder's regression heads.
+The parts are chosen by name as in the JAX package, which BDNet shares
+(`image_encoder`, `matching_encoder`, `depth_decoder`):
+- image encoder, by substring in this order: `efficientnet`
+  (EfficientNetV2-S), `tiny`, `resnext101` (ResNeXt101-64x4d),
+  `seresnextaa101d` (SE-ResNeXt-AA101d-32x8d), then `resnet` (ResNet18-D);
+  any other name is a ValueError;
+- matching encoder: `fpn` (MNASNet + FPN), any other the ResNet one;
+- decoder: `unet_pp` (DecoderPP) or `skip` (SkipDecoder), else ValueError.
+Ported volumes:
 - `mlp_feature_volume`: the metadata MLP run unfused over the warped views
   (MetadataVolumeMLP.forward), as the JAX DepthNet does;
 - `simple_cost_volume`: the dot-product volume summed over views;
 - `zero_cost_volume`: the ablation volume of zeros.
 The warp is volumes/cost_volume.py::build_warped_views, i.e. kernels #5
-(forward) and #6 (backward) of ops/warp_kernel.py on CUDA tensors. The
-ResNet18-D and ResNeXt encoders, the FPN matching encoder and the skip
-decoder are not ported yet (the constructor refuses them).
+(forward) and #6 (backward) of ops/warp_kernel.py on CUDA tensors.
 
 Flip augmentation follows the JAX package: images flipped, matching features
 unflipped before the volume, the volume re-flipped before the CV encoder,
@@ -29,9 +36,11 @@ import torch
 import torch.nn as nn
 
 from implicit_depth_tpu_torch.core import geometry
-from implicit_depth_tpu_torch.models.decoders import CVEncoder, DecoderPP
-from implicit_depth_tpu_torch.models.image_encoders import EfficientNetV2S, TinyEncoder
+from implicit_depth_tpu_torch.models.decoders import CVEncoder, DecoderPP, SkipDecoder
+from implicit_depth_tpu_torch.models.fpn_matching import FPNMatchingEncoder
+from implicit_depth_tpu_torch.models.image_encoders import EfficientNetV2S, ResNet18D, TinyEncoder
 from implicit_depth_tpu_torch.models.matching import ResnetMatchingEncoder
+from implicit_depth_tpu_torch.models.resnets import ResNeXt101_64x4d, SEResNeXtAA101d_32x8d
 from implicit_depth_tpu_torch.models.volume_mlp import MetadataVolumeMLP
 from implicit_depth_tpu_torch.volumes import cost_volume as cv
 
@@ -39,6 +48,39 @@ Tensor = torch.Tensor
 
 SCALES = (0, 1, 2, 3)
 VOLUME_TYPES = ("mlp_feature_volume", "simple_cost_volume", "zero_cost_volume")
+
+
+def image_encoder(name: str) -> nn.Module:
+    """The image encoder a name selects, tested in the JAX package's order
+    (so "seresnextaa101d_32x8d" is not taken for "resnet")."""
+    if "efficientnet" in name:
+        return EfficientNetV2S()
+    if "tiny" in name:
+        return TinyEncoder()
+    if "resnext101" in name:
+        return ResNeXt101_64x4d()
+    if "seresnextaa101d" in name:
+        return SEResNeXtAA101d_32x8d()
+    if "resnet" in name:
+        return ResNet18D()
+    raise ValueError(f"Unknown image encoder {name}")
+
+
+def matching_encoder(matching_encoder_type: str, num_ch_out: int) -> nn.Module:
+    if matching_encoder_type == "fpn":
+        return FPNMatchingEncoder(num_ch_out=num_ch_out)
+    return ResnetMatchingEncoder(num_ch_out=num_ch_out)
+
+
+def depth_decoder(name: str, enc_channels: list, regression: bool) -> nn.Module:
+    """DecoderPP or SkipDecoder over features of `enc_channels`; with
+    `regression` the log-depth heads (DecoderPP's 1x1 heads, SkipDecoder's
+    regression heads)."""
+    if name == "unet_pp":
+        return DecoderPP(enc_channels, head_channels=int(regression))
+    if name == "skip":
+        return SkipDecoder(enc_channels, regression_heads=regression)
+    raise ValueError(f"Unknown decoder {name}")
 
 
 class DepthNet(nn.Module):
@@ -59,31 +101,24 @@ class DepthNet(nn.Module):
         super().__init__()
         if feature_volume_type not in VOLUME_TYPES:
             raise NotImplementedError(f"feature volume {feature_volume_type} is not ported")
-        if depth_decoder_name != "unet_pp":
-            raise NotImplementedError(f"depth decoder {depth_decoder_name} is not ported")
-        if matching_encoder_type != "resnet":
-            raise NotImplementedError(f"matching encoder {matching_encoder_type} is not ported")
         self.feature_volume_type = feature_volume_type
+        self.depth_decoder_name = depth_decoder_name
         self.matching_scale = matching_scale
         self.num_depth_bins = num_depth_bins
         self.min_matching_depth = min_matching_depth
         self.max_matching_depth = max_matching_depth
         self.compute_dtype = compute_dtype
 
-        if "efficientnet" in image_encoder_name:
-            self.encoder = EfficientNetV2S()
-        elif "tiny" in image_encoder_name:
-            self.encoder = TinyEncoder()
-        else:
-            raise NotImplementedError(f"image encoder {image_encoder_name} is not ported")
+        self.encoder = image_encoder(image_encoder_name)
         enc_ch = list(self.encoder.num_ch_enc)
-        self.matching = ResnetMatchingEncoder(num_ch_out=matching_feature_dims)
+        self.matching = matching_encoder(matching_encoder_type, matching_feature_dims)
         if feature_volume_type == "mlp_feature_volume":
             self.volume_mlp = MetadataVolumeMLP(num_src_views=num_src_views,
                                                 matching_dim=matching_feature_dims)
         self.cv_encoder = CVEncoder(num_depth_bins, enc_ch[matching_scale:])
-        self.decoder = DecoderPP(enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs),
-                                 head_channels=1)
+        self.decoder = depth_decoder(depth_decoder_name,
+                                     enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs),
+                                     regression=True)
 
     def cast_to_compute_dtype(self) -> "DepthNet":
         """Casts the conv stacks to the compute dtype for inference. The
@@ -145,7 +180,9 @@ class DepthNet(nn.Module):
 
         outputs: dict = {"lowest_cost": lowest}
         for scale in SCALES:
-            log_depth = dec[scale].float().permute(0, 2, 3, 1)        # (b, h_s, w_s, 1)
+            log_depth = dec[scale] if self.depth_decoder_name == "unet_pp" else \
+                dec[f"log_depth_{scale}"]
+            log_depth = log_depth.float().permute(0, 2, 3, 1)         # (b, h_s, w_s, 1)
             if flip:
                 log_depth = log_depth.flip(2)
             outputs[f"log_depth_pred_{scale}"] = log_depth

@@ -13,8 +13,10 @@ TF SAME padding (asymmetric on the stride-2 convs), BN eps 1e-3, SiLU,
     s5: InvertedResid. r15 k3 s2 e6 c256 se0.25
 
 with feature taps after s0, s1, s2, s4, s5 -> channels (24, 48, 64, 160,
-256) at strides (2, 4, 8, 16, 32). TinyEncoder is a small 5-level pyramid
-for tests.
+256) at strides (2, 4, 8, 16, 32). ResNet18D mirrors timm `resnet18d`
+features_only: a deep 3x3 stem (32, 32, 64), a 3x3/2 max pool, BasicBlock
+layers whose strided shortcuts average-pool first; channels (64, 64, 128,
+256, 512). TinyEncoder is a small 5-level pyramid for tests.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from implicit_depth_tpu_torch.models.matching import BatchNorm
+from implicit_depth_tpu_torch.models.matching import BatchNorm, ResnetBlockBN
 
 Tensor = torch.Tensor
 
@@ -174,5 +176,39 @@ class TinyEncoder(nn.Module):
         x = image_nchw
         for i in range(len(self.num_ch_enc)):
             x = F.leaky_relu(getattr(self, f"conv{i}")(x), 0.2)
+            feats.append(x)
+        return feats
+
+
+class ResNet18D(nn.Module):
+    """features_only resnet18d: 5 feature maps at strides (2, 4, 8, 16, 32)."""
+
+    num_ch_enc = (64, 64, 128, 256, 512)
+    STEM = (32, 32, 64)
+    LAYERS = ((64, 2, 1), (128, 2, 2), (256, 2, 2), (512, 2, 2))  # (channels, blocks, stride)
+
+    def __init__(self):
+        super().__init__()
+        cin = 3
+        for i, ch in enumerate(self.STEM):
+            self.add_module(f"stem_conv{i}", nn.Conv2d(cin, ch, 3, 2 if i == 0 else 1, padding=1,
+                                                       bias=False))
+            self.add_module(f"stem_bn{i}", BatchNorm(ch))
+            cin = ch
+        for li, (ch, n, stride) in enumerate(self.LAYERS):
+            for bi in range(n):
+                self.add_module(f"layer{li + 1}_{bi}", ResnetBlockBN(
+                    cin, ch, stride if bi == 0 else 1, avg_down=True))
+                cin = ch
+
+    def forward(self, image_nchw: Tensor) -> list[Tensor]:
+        x = image_nchw
+        for i in range(len(self.STEM)):
+            x = F.relu(getattr(self, f"stem_bn{i}")(getattr(self, f"stem_conv{i}")(x)))
+        feats = [x]
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for li, (_, n, _) in enumerate(self.LAYERS):
+            for bi in range(n):
+                x = getattr(self, f"layer{li + 1}_{bi}")(x)
             feats.append(x)
         return feats

@@ -94,24 +94,37 @@ def blur_pool(x_nchw: Tensor, filt_size: int = 4, stride: int = 2) -> Tensor:
     return F.conv2d(x, kernel, stride=stride, groups=c)
 
 
-class ResnetBlockBN(nn.Module):
-    """torchvision-style BasicBlock: conv-BN-ReLU-conv-BN + shortcut."""
+def avg_down(x_nchw: Tensor) -> Tensor:
+    """The "-d" shortcut's 2x2 average pool at stride 2 with VALID padding
+    (an odd side drops its last row or column), as flax's nn.avg_pool; not
+    timm's ceil_mode=True, count_include_pad=False."""
+    return F.avg_pool2d(x_nchw, 2, 2)
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+
+class ResnetBlockBN(nn.Module):
+    """torchvision-style BasicBlock: conv-BN-ReLU-conv-BN + shortcut. With
+    avg_down (the "-d" variant) a strided shortcut is avg_down, then the 1x1
+    conv at stride 1."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1, avg_down: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, features, 3, stride, padding=1, bias=False)
         self.bn1 = BatchNorm(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, padding=1, bias=False)
         self.bn2 = BatchNorm(features)
         self.downsample_conv = None
+        self.pool_first = avg_down and stride != 1
         if cin != features or stride != 1:
-            self.downsample_conv = nn.Conv2d(cin, features, 1, stride, bias=False)
+            self.downsample_conv = nn.Conv2d(cin, features, 1, 1 if self.pool_first else stride,
+                                             bias=False)
             self.downsample_bn = BatchNorm(features)
 
     def forward(self, x: Tensor) -> Tensor:
         out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
         identity = x
         if self.downsample_conv is not None:
+            if self.pool_first:
+                identity = avg_down(identity)
             identity = self.downsample_bn(self.downsample_conv(identity))
         return F.relu(out + identity)
 

@@ -68,12 +68,17 @@ KINDS = ("bd", "regression")
 
 def build_net(cfg: Config, kind: str = "bd"):
     """The model of a config, with bf16 compute at precision 16: BDNet for
-    kind "bd", DepthNet for kind "regression". Raises NotImplementedError
-    for parts the port does not have yet."""
+    kind "bd", DepthNet for kind "regression". The encoders and the decoder
+    come from the config's names (image_encoder_name, matching_encoder_type,
+    depth_decoder_name); an unknown image encoder or decoder is a
+    ValueError, a volume type the port lacks a NotImplementedError."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     common = dict(
         image_encoder_name=cfg.image_encoder_name,
+        feature_volume_type=cfg.feature_volume_type,
+        depth_decoder_name=cfg.depth_decoder_name,
+        matching_encoder_type=cfg.matching_encoder_type,
         matching_scale=cfg.matching_scale,
         matching_feature_dims=cfg.matching_feature_dims,
         num_depth_bins=cfg.matching_num_depth_bins,
@@ -83,14 +88,9 @@ def build_net(cfg: Config, kind: str = "bd"):
         compute_dtype=torch.bfloat16 if cfg.precision == 16 else torch.float32,
     )
     if kind == "regression":
-        return DepthNet(feature_volume_type=cfg.feature_volume_type,
-                        depth_decoder_name=cfg.depth_decoder_name,
-                        matching_encoder_type=cfg.matching_encoder_type, **common)
-    if (cfg.depth_decoder_name, cfg.matching_encoder_type) != ("unet_pp", "resnet"):
-        raise NotImplementedError("the port's BD model runs the U-Net++ decoder and the ResNet "
-                                  "matching encoder")
-    return BDNet(feature_volume_type=cfg.feature_volume_type, use_prior=cfg.use_prior,
-                 bd_sigmoid_multiplier=cfg.bd_sigmoid_multiplier, **common)
+        return DepthNet(**common)
+    return BDNet(use_prior=cfg.use_prior, bd_sigmoid_multiplier=cfg.bd_sigmoid_multiplier,
+                 **common)
 
 
 def build_dataset(cfg: Config, split: str, kind: str = "bd", limit_to_scan_id=None,

@@ -3,7 +3,9 @@ implicit_depth_tpu/train/state.py (make_optimizer, make_bd_train_step,
 make_regression_train_step).
 
 - AdamW (decoupled weight decay, eps 1e-8, on every parameter, as optax's
-  `adamw` with a schedule) and the stepped learning rate x1 / x0.1 / x0.01
+  `adamw` with a schedule; a parameter that backward leaves without a
+  gradient, such as the FPN's `lateral_0`, gets a zero one, so that it is
+  decayed and counted as optax does: `fill_missing_grads`) and the stepped learning rate x1 / x0.1 / x0.01
   at lr_steps, with optax.piecewise_constant_schedule's boundaries: the
   update with index i (0-based) runs at the rate for i, scaled by 0.1 once
   i >= lr_steps[0] and again once i >= lr_steps[1].
@@ -58,6 +60,17 @@ def make_optimizer(params, lr: float = 1e-4, wd: float = 1e-4, lr_steps=(70000, 
     every optimizer step."""
     opt = torch.optim.AdamW(params, lr=lr, weight_decay=wd, eps=1e-8, betas=(0.9, 0.999))
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, stepped_lr(lr_steps))
+
+
+def fill_missing_grads(params) -> None:
+    """Gives every trainable parameter whose .grad is None a zero gradient.
+    torch's AdamW skips such a parameter (no weight decay, no step count),
+    where optax.adamw decays every parameter, including those whose
+    gradient is exactly 0; in a process group it also keeps the ranks'
+    gradient all-reduce over the same tensors."""
+    for p in params:
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def edge_mask_at_rays(gt_depth: Tensor, rays: Tensor) -> Tensor:
@@ -116,6 +129,7 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
             regularisation_weight=regularisation_weight, edge_mask=edge)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        fill_missing_grads(net.parameters())
         distributed.average_gradients(net.parameters())
         optimizer.step()
         if scheduler is not None:
@@ -153,6 +167,7 @@ def make_regression_train_step(net, optimizer, scheduler=None, *, dataset: str =
         losses = loss_lib.regression_losses(cur_data, src_data, out, dataset=dataset)
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        fill_missing_grads(net.parameters())
         distributed.average_gradients(net.parameters())
         optimizer.step()
         if scheduler is not None:

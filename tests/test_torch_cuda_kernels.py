@@ -58,6 +58,9 @@ the card resumed from its step-2 checkpoint against the uninterrupted run:
 the same batches, and chip_smoke.py's fit-resume bounds.
 The AR demo path (a tiny temporal model): run_inference with the prior fed
 back on the card against the CPU, at chip_smoke.py's ar-inference bound.
+The encoder zoo (`-k zoo`): forward_val of the BDNet with the resnet18d
+encoder, the FPN matching encoder and the skip decoder (K=2, D=8, 64x96,
+f32) on the card against the CPU, #1 once, within 1e-4 as the tiny BDNet.
 """
 
 import numpy as np
@@ -157,6 +160,28 @@ def test_forward_val_gpu_matches_cpu(cuda):
     from implicit_depth_tpu_torch.weights import init_params
 
     net = init_params(BDNet(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8),
+                      torch.Generator().manual_seed(0)).eval()
+    cur, src = synthetic_bd_batch(batch=1, num_src=2, height=64, width=96, num_planes=3,
+                                  with_train_keys=False)
+    with torch.no_grad():
+        ref = net.forward_val({k: torch.tensor(v) for k, v in cur.items()},
+                              {k: torch.tensor(v) for k, v in src.items()})
+        before = fused_metadata_volume.launches
+        got = net.to(cuda).forward_val({k: torch.tensor(v, device=cuda) for k, v in cur.items()},
+                                       {k: torch.tensor(v, device=cuda) for k, v in src.items()})
+    assert fused_metadata_volume.launches == before + 1
+    np.testing.assert_allclose(got["pred_0"].cpu().numpy(), ref["pred_0"].numpy(),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_zoo_forward_val_gpu_matches_cpu(cuda):
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+    from implicit_depth_tpu_torch.models.bd_net import BDNet
+    from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
+    from implicit_depth_tpu_torch.weights import init_params
+
+    net = init_params(BDNet(image_encoder_name="resnet18d", matching_encoder_type="fpn",
+                            depth_decoder_name="skip", num_src_views=2, num_depth_bins=8),
                       torch.Generator().manual_seed(0)).eval()
     cur, src = synthetic_bd_batch(batch=1, num_src=2, height=64, width=96, num_planes=3,
                                   with_train_keys=False)

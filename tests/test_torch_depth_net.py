@@ -118,9 +118,27 @@ def test_bridge_takes_depth_net_trees(batch, train_bn):
 
 
 def test_depth_net_refuses_unported_parts():
-    for kw in (dict(depth_decoder_name="skip"), dict(matching_encoder_type="fpn"),
-               dict(image_encoder_name="resnet"), dict(feature_volume_type="cost_volume")):
-        with pytest.raises(NotImplementedError):
+    """The skip decoder, the FPN matching encoder and the ResNet encoders
+    build now, by the JAX package's names and in its order of tests;
+    unknown names still raise (ValueError, as in JAX), and so does a volume
+    type the port lacks (NotImplementedError)."""
+    from implicit_depth_tpu_torch.models.decoders import SkipDecoder
+    from implicit_depth_tpu_torch.models.fpn_matching import FPNMatchingEncoder
+    from implicit_depth_tpu_torch.models.image_encoders import ResNet18D
+    from implicit_depth_tpu_torch.models.resnets import ResNetBottleneckEncoder
+
+    net = DepthNet(image_encoder_name="tiny", depth_decoder_name="skip",
+                   matching_encoder_type="fpn")
+    assert isinstance(net.decoder, SkipDecoder) and net.decoder.regression_heads
+    assert isinstance(net.matching, FPNMatchingEncoder)
+    assert isinstance(DepthNet(image_encoder_name="resnet").encoder, ResNet18D)
+    assert isinstance(DepthNet(image_encoder_name="resnet18d").encoder, ResNet18D)
+    se = DepthNet(image_encoder_name="seresnextaa101d_32x8d").encoder
+    assert isinstance(se, ResNetBottleneckEncoder) and se.num_ch_enc[0] == 128
+    for kw, error in ((dict(image_encoder_name="vgg16"), ValueError),
+                      (dict(depth_decoder_name="no_such_decoder"), ValueError),
+                      (dict(feature_volume_type="cost_volume"), NotImplementedError)):
+        with pytest.raises(error):
             DepthNet(**kw)
 
 

@@ -175,14 +175,31 @@ def test_test_bd_cli_on_bridged_weights(tmp_path, capsys):
 
 
 def test_build_net_refuses_unported_configs():
+    """The skip decoder and the FPN matching encoder build now, for both
+    kinds; what the port does not have is still refused: an unknown image
+    encoder or decoder (ValueError, as the JAX package) and a volume type
+    the port lacks (NotImplementedError)."""
     from implicit_depth_tpu.config import Config
+    from implicit_depth_tpu_torch.models.decoders import SkipDecoder
+    from implicit_depth_tpu_torch.models.depth_net import DepthNet
+    from implicit_depth_tpu_torch.models.fpn_matching import FPNMatchingEncoder
     from implicit_depth_tpu_torch.train.loop import build_net
 
-    for field, value in (("depth_decoder_name", "skip"), ("matching_encoder_type", "fpn")):
-        cfg = Config(image_encoder_name="tiny", model_num_views=3, matching_num_depth_bins=8)
-        setattr(cfg, field, value)
-        with pytest.raises(NotImplementedError):
-            build_net(cfg)
+    def cfg(**kw):
+        return Config(**{"image_encoder_name": "tiny", "model_num_views": 3,
+                         "matching_num_depth_bins": 8, **kw})
+
+    for kind, cls in (("bd", BDNet), ("regression", DepthNet)):
+        net = build_net(cfg(depth_decoder_name="skip"), kind)
+        assert isinstance(net, cls) and isinstance(net.decoder, SkipDecoder)
+        assert net.decoder.regression_heads == (kind == "regression")
+        net = build_net(cfg(matching_encoder_type="fpn"), kind)
+        assert isinstance(net.matching, FPNMatchingEncoder)
+        for field, value, error in (("image_encoder_name", "vgg16", ValueError),
+                                    ("depth_decoder_name", "no_such_decoder", ValueError),
+                                    ("feature_volume_type", "cost_volume", NotImplementedError)):
+            with pytest.raises(error):
+                build_net(cfg(**{field: value}), kind)
     net = build_net(Config(image_encoder_name="tiny", model_num_views=3,
                            matching_num_depth_bins=8, precision=32))
     assert net.compute_dtype == torch.float32 and net.volume_mlp.num_src_views == 2

@@ -111,6 +111,26 @@ def assert_grad_tree_close(grads, module: torch.nn.Module, rel: float, atol: flo
     return assert_tree_close(grads, "params", got, rel, atol)
 
 
+def grad_agreement(grads, module: torch.nn.Module) -> tuple:
+    """A flax gradient tree (of "params") against the `.grad` of every
+    parameter of `module`: (relative L2 error over all parameters together,
+    median and worst over parameters of max|got - ref| / max|ref|, the
+    worst one's name). Parameters whose largest reference value is below
+    1e-6 of the overall largest (biases that a following batch or instance
+    norm cancels: rounding noise on both sides) count in the L2 error only."""
+    ref = state_dict_from_flax({"params": to_numpy_tree(grads)})
+    got = {name: p.grad for name, p in module.named_parameters()}
+    assert set(ref) == set(got), sorted(set(ref) ^ set(got))
+    ref = {k: r.double() for k, r in ref.items()}
+    got = {k: g.detach().double() for k, g in got.items()}
+    num = sum(float(((got[k] - r) ** 2).sum()) for k, r in ref.items())
+    den = sum(float((r ** 2).sum()) for r in ref.values())
+    top = max(float(r.abs().max()) for r in ref.values())
+    rel = sorted((float((got[k] - r).abs().max()) / float(r.abs().max()), k)
+                 for k, r in ref.items() if float(r.abs().max()) >= 1e-6 * top)
+    return (num / den) ** 0.5, float(np.median([e for e, _ in rel])), rel[-1][0], rel[-1][1]
+
+
 def flax_tree_from_port(template, collection: str, tensors: dict):
     """The inverse of the bridge: a flax tree shaped like `template` (one
     collection) holding the port's tensors {state_dict name: tensor}, with
@@ -132,6 +152,9 @@ def flax_tree_from_port(template, collection: str, tensors: dict):
 
 
 _BN_REF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+_RESNET18D_REF = {"stem_conv0": "conv1.0", "stem_bn0": "conv1.1", "stem_conv1": "conv1.3",
+                  "stem_bn1": "conv1.4", "stem_conv2": "conv1.6", "stem_bn2": "bn1",
+                  "downsample_conv": "downsample.1", "downsample_bn": "downsample.2"}
 _MATCHING_REF = {"conv1": "0", "bn1": "1", "layer1_0": "4.0", "layer1_1": "4.1",
                  "head_conv1": "5", "head_conv2": "8"}
 
@@ -141,9 +164,11 @@ def _ref_module_path(top: str, names: list) -> str:
     JAX package's train/checkpoint.py converters)."""
     import re
 
-    if top == "encoder":  # timm: s{s}_b{i} -> blocks.{s}.{i}
-        return ".".join(["encoder"] + [re.sub(r"^s(\d+)_b(\d+)$", r"blocks.\1.\2", n)
-                                       for n in names])
+    if top == "encoder":  # timm: s{s}_b{i} -> blocks.{s}.{i}, layer{l}_{b} -> layer{l}.{b}
+        return ".".join(["encoder"] + [
+            _RESNET18D_REF.get(n) or re.sub(r"^layer(\d+)_(\d+)$", r"layer\1.\2",
+                                            re.sub(r"^s(\d+)_b(\d+)$", r"blocks.\1.\2", n))
+            for n in names])
     if top == "matching":
         return ".".join(["matching_model.net", _MATCHING_REF[names[0]]] + names[1:])
     if top == "volume_mlp":
@@ -174,8 +199,9 @@ def reference_state_dict_from_flax(variables_np: dict) -> dict:
     """A reference-layout (upstream PyTorch) state_dict holding a flax
     {"params", "batch_stats"} tree of the BD or depth model with the
     EfficientNetV2-S encoder: what the reference's released .ckpt files
-    hold. The JAX package's convert_reference_*_checkpoint maps it back to
-    the tree (the tests check that round trip)."""
+    hold; with the resnet18d encoder, timm's resnet18d layout. The JAX
+    package's convert_reference_*_checkpoint maps it back to the tree (the
+    tests check that round trip)."""
     from flax import traverse_util
 
     sd = {}
