@@ -186,6 +186,16 @@ non-zero:
                 passes where the CPU step itself moves it by a third of
                 its GPU-CPU gap under 1e-6 image noise (ZOO_NOISE: ReLU
                 after batch norm over 24 values a channel).
+31. tools:      the measurement tools through their main(): cli/profile_eval.py
+                (b=1), cli/profile_train.py --batch 12 --json, cli/bench_train.py
+                --batch 12, cli/roofline.py in eval mode and with --train; each
+                probe's launches of #1-#4 against EVAL_PROBE_LAUNCHES and
+                TRAIN_PROBE_LAUNCHES, no roofline share over 100% of a peak,
+                the roofline's hand-counted work per launch equal to the work
+                behind the kernel phases' bounds (ops/bounds.py); then
+                cli/make_random_checkpoint.py -> a training checkpoint of the
+                card's net -> cli/strip_checkpoint.py -> a strict load on the
+                card, bit-equal.
 Then one JSON line with the six kernels' results (with each kernel's
 launches on every path that runs it) and, last, the device line.
 
@@ -204,6 +214,12 @@ import time
 
 import numpy as np
 import torch
+
+from implicit_depth_tpu_torch.ops.bounds import (F32_FLOP_PER_S, HIDDEN, MATCHING_DIM,
+                                                 launch_counts, least_ms, nbytes,
+                                                 ray_head_bwd_macs, ray_head_fwd_macs,
+                                                 reset_launch_counts, volume_bwd_macs,
+                                                 volume_fwd_macs)
 
 ATOL, RTOL = 2e-3, 1e-3  # kernel vs plain: f32 sums in another order (as the JAX test)
 # In bf16 the kernels and their plain versions round the same f32 values to
@@ -257,13 +273,9 @@ RAY_FLAGSHIP = dict(b=12, n=4096, s=64)
 RAY_RAGGED = dict(b=2, n=100, s=13)
 RAY_SCALE2 = dict(b=12, n=1366, s=64)  # the BD step's scale-2 launch
 TIMED_RUNS = 20
-# the card's published peaks (H100 SXM data sheet, 700 W): HBM bytes/s and
-# dense bf16 tensor-core FLOP/s; a bound is the larger of bytes / HBM and
-# FLOP / the bf16 peak (the kernels' work is matrix products)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12  # CUDA cores, outside the tensor cores (the warp's arithmetic)
-C_, F_ = 16, 128
+# a bound is the larger of bytes / HBM and FLOP / the bf16 peak (the kernels'
+# work is matrix products; the warp's arithmetic runs on the CUDA cores in f32)
+C_, F_ = MATCHING_DIM, HIDDEN
 
 
 def cuda_ms(fn, runs: int = TIMED_RUNS) -> float:
@@ -436,11 +448,12 @@ def phase_kernel() -> dict:
                 ms = cuda_ms(lambda: fused_metadata_volume(*ops))
                 plain_ms = cuda_ms(lambda: fused_metadata_volume_reference(*ops))
                 points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
-                b_ms, b_by = least_ms(nbytes(*ops, got), 2.0 * points * volume_fwd_macs(shape["K"]))
+                flops = 2.0 * points * volume_fwd_macs(shape["K"])
+                b_ms, b_by = least_ms(nbytes(*ops, got), flops)
                 line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median of {TIMED_RUNS}), "
                          f"bound {b_ms:.4f} ms ({b_by})")
                 result[label] = {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by}
+                                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
             print(line, flush=True)
         del ops
     result["train bf16"] = _volume_fwd_train_shape()
@@ -481,36 +494,13 @@ def _volume_fwd_train_shape() -> dict:
         del ref
         ms = cuda_ms(lambda: fused_metadata_volume(*ops))
         plain_ms = cuda_ms(lambda: volume_reference_by_batch(ops), runs=3)
-    points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
-    b_ms, b_by = least_ms(nbytes(*ops, got), 2.0 * points * volume_fwd_macs(shape["K"]))
+    flops = 2.0 * shape["B"] * shape["D"] * shape["H"] * shape["W"] * volume_fwd_macs(shape["K"])
+    b_ms, b_by = least_ms(nbytes(*ops, got), flops)
     print(f"kernel train bf16 {tuple(got.shape)} (B, D, H, W), K={shape['K']}: {summary}; kernel "
           f"{ms:.3f} ms (median of {TIMED_RUNS}), plain {plain_ms:.3f} ms ({shape['B']} calls of "
           f"one batch element, median of 3), bound {b_ms:.4f} ms ({b_by})", flush=True)
     return {"shape": "B=12 K=7 96x128 D=64 bf16", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-
-
-def least_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) -> tuple:
-    """(least ms, "bytes" or "operations") for the given work on this card."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def volume_fwd_macs(K: int) -> int:
-    """Multiply-adds per (b, d, v, u) point of kernel #1: fc0 over the
-    K*(C+6) live inputs, fc1, fc2."""
-    return K * (C_ + 6) * F_ + F_ * F_ + F_
-
-
-def volume_bwd_macs(K: int) -> int:
-    """Kernel #2 per point: the forward again, dh1 and dW_fc1T (2 F^2),
-    dvis and dW_visT (2 K C F), dW_metaT (6 K F), ddot (K F), fc2 (F)."""
-    return volume_fwd_macs(K) + 2 * F_ * F_ + 2 * K * C_ * F_ + 7 * K * F_ + F_
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
 
 
 def check_volume(label: str, got, ref, dtype) -> str:
@@ -590,15 +580,15 @@ def phase_kernel_bwd() -> dict:
             del noisy
             ms = cuda_ms(lambda: fused_metadata_volume_bwd(ct, *ops))
             plain_ms = cuda_ms(lambda: fused_metadata_volume_bwd_reference(ct, *ops), runs=5)
-            points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
-            b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got),
-                               2.0 * points * volume_bwd_macs(shape["K"]))
+            flops = (2.0 * shape["B"] * shape["D"] * shape["H"] * shape["W"]
+                     * volume_bwd_macs(shape["K"]))
+            b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got), flops)
             print(f"kernel-bwd {label}: the plain version under 1e-5 relative noise on base moves "
                   f"by a worst relative L2 of {sens[0]:.2e} ({sens[1]}); kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms (medians), bound {b_ms:.4f} ms ({b_by}); shared memory "
                   f"{bwd_smem_bytes(shape['K'], dtype)} bytes per block", flush=True)
             result[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by}
+                             "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
         del ops, got, ref
     result["train bf16"] = _volume_bwd_train_shape()
     return result
@@ -638,13 +628,14 @@ def _volume_bwd_train_shape() -> dict:
     del ref
     ms = cuda_ms(lambda: fused_metadata_volume_bwd(ct, *ops))
     plain_ms = cuda_ms(lambda: volume_bwd_reference_by_batch(ct, ops), runs=3)
-    points = shape["B"] * shape["D"] * shape["H"] * shape["W"]
-    b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got), 2.0 * points * volume_bwd_macs(shape["K"]))
+    flops = (2.0 * shape["B"] * shape["D"] * shape["H"] * shape["W"]
+             * volume_bwd_macs(shape["K"]))
+    b_ms, b_by = least_ms(nbytes(ct, *ops) + nbytes(*got), flops)
     print(f"kernel-bwd train bf16 {tuple(ct.shape)} (B, D, H, W), K={shape['K']}: kernel {ms:.3f} ms "
           f"(median of {TIMED_RUNS}), plain {plain_ms:.3f} ms ({shape['B']} calls of one batch "
           f"element, median of 3), bound {b_ms:.4f} ms ({b_by})", flush=True)
     return {"shape": "B=12 K=7 96x128 D=64 bf16", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
 
 
 def ray_inputs(b: int, n: int, s: int, prior: bool, dtype, seed: int = 0) -> tuple:
@@ -774,18 +765,19 @@ def phase_kernel_ray() -> dict:
             b_plain = cuda_ms(lambda: rh.ray_head_bwd_reference(ct, *ops[:-1]), runs=5)
             rows = shape["b"] * shape["n"] * shape["s"]
             grads = rh.ray_head_bwd(ct, *ops[:-1])
-            fb = least_ms(nbytes(*ops, out), 2.0 * rows * (F_ * F_ + 3 * F_))
+            f_flops, b_flops = 2.0 * rows * ray_head_fwd_macs(), 2.0 * rows * ray_head_bwd_macs()
+            fb = least_ms(nbytes(*ops, out), f_flops)
             bb = least_ms(nbytes(*ops[:-1], ct) + nbytes(*(t for t in grads if t is not None)),
-                          2.0 * rows * (3 * F_ * F_ + 8 * F_))
+                          b_flops)
             del grads
             print(f"kernel-ray {label}: forward kernel {f_ms:.3f} ms ({fb[0] / f_ms:.1%} of its "
                   f"bound's rate), plain {f_plain:.3f} ms, bound {fb[0]:.4f} ms ({fb[1]}); "
                   f"backward kernel {b_ms_k:.3f} ms ({bb[0] / b_ms_k:.1%}), plain "
                   f"{b_plain:.3f} ms, bound {bb[0]:.4f} ms ({bb[1]}) (medians)", flush=True)
             result["fwd"] = {"max_abs_err": fwd_err, "ms": f_ms, "plain_ms": f_plain,
-                             "bound_ms": fb[0], "bound_by": fb[1]}
+                             "bound_ms": fb[0], "bound_by": fb[1], "flops": f_flops}
             result["bwd"] = {"max_abs_err": bwd_err, "ms": b_ms_k, "plain_ms": b_plain,
-                             "bound_ms": bb[0], "bound_by": bb[1]}
+                             "bound_ms": bb[0], "bound_by": bb[1], "flops": b_flops}
         elif shape is RAY_FLAGSHIP:  # with the prior: the temporal model's variant
             del ref, gr
             with torch.no_grad():
@@ -798,7 +790,7 @@ def phase_kernel_ray() -> dict:
             with torch.no_grad():
                 f_ms = cuda_ms(lambda: rh.ray_head_fwd(*ops))
             rows = shape["b"] * shape["n"] * shape["s"]
-            fb = least_ms(nbytes(*ops, out), 2.0 * rows * (F_ * F_ + 3 * F_))
+            fb = least_ms(nbytes(*ops, out), 2.0 * rows * ray_head_fwd_macs())
             print(f"kernel-ray {label}: forward kernel {f_ms:.3f} ms ({fb[0] / f_ms:.1%} of its "
                   f"bound's rate), bound {fb[0]:.4f} ms ({fb[1]}) (median)", flush=True)
         del ops, ct, out
@@ -847,10 +839,10 @@ def _occlusion_eval(label: str, net, ds, expected, **kwargs) -> dict:
     are expected(forwards) and no prediction is non-finite."""
     from implicit_depth_tpu_torch.eval.occlusion_eval import evaluate_scenes
 
-    _zero_launch_counts()
+    reset_launch_counts()
     res = evaluate_scenes(net, {"scene0": ds}, batch_size=1, thresholder=cli_thresholder(),
                           **kwargs)
-    counts = _launch_counts()
+    counts = launch_counts()
     n = res["forwards"]
     if n != len(ds) or counts != expected(n):
         raise AssertionError(f"{label}: {n} forwards over {len(ds)} tuples, kernel launches "
@@ -940,32 +932,11 @@ def phase_model() -> None:
           f"lowest_cost on the same plane for {same_lowest:.4f} of pixels", flush=True)
 
 
-def _wrappers() -> tuple:
-    """The six kernel wrappers, #1 to #6."""
-    from implicit_depth_tpu_torch.ops import fused_volume as fvm
-    from implicit_depth_tpu_torch.ops import ray_head as rh
-    from implicit_depth_tpu_torch.ops import warp_kernel as wk
-
-    return (fvm.fused_metadata_volume, fvm.fused_metadata_volume_bwd, rh.ray_head_fwd,
-            rh.ray_head_bwd, wk.warp_planes, wk.warp_planes_bwd)
-
-
-def _launch_counts() -> tuple:
-    return tuple(fn.launches for fn in _wrappers())
-
-
 def _prior_launch_counts() -> tuple:
     """The ray head's launches (#3, #4) that took the prior."""
     from implicit_depth_tpu_torch.ops import ray_head as rh
 
     return rh.ray_head_fwd.prior_launches, rh.ray_head_bwd.prior_launches
-
-
-def _zero_launch_counts() -> None:
-    for fn in _wrappers():
-        fn.launches = 0
-        if hasattr(fn, "prior_launches"):
-            fn.prior_launches = 0
 
 
 TRAIN_STEPS = 6
@@ -1004,7 +975,7 @@ def _train_run(batch_size: int, use_prior: bool = False,
     before = {k: v.detach().clone() for k, v in watched.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts()
+    reset_launch_counts()
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1013,7 +984,7 @@ def _train_run(batch_size: int, use_prior: bool = False,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
-    launches = _launch_counts()
+    launches = launch_counts()
     prior_launches = _prior_launch_counts()
     moved = {k: not torch.equal(before[k], v.detach()) for k, v in watched.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -1459,9 +1430,9 @@ def _reg_eval(label: str, net, ds) -> dict:
     forward and the others never, and the metrics are finite."""
     from implicit_depth_tpu_torch.eval.depth_eval import evaluate_depth
 
-    _zero_launch_counts()
+    reset_launch_counts()
     res = evaluate_depth(net, {"scene0": ds}, batch_size=1)
-    counts = _launch_counts()
+    counts = launch_counts()
     n = res["forwards"]
     if n != len(ds) or counts != (0, 0, 0, 0, n, 0):
         raise AssertionError(f"{label}: {n} forwards over {len(ds)} tuples, kernel launches "
@@ -1490,10 +1461,10 @@ def phase_reg_main() -> dict:
     dot = reg_net(torch.bfloat16, "simple_cost_volume").cuda().eval().cast_to_compute_dtype()
     cur, src = ({k: torch.as_tensor(v).cuda() for k, v in d.items() if k != "frame_id_string"}
                 for d in collate([ds[0]]))
-    _zero_launch_counts()
+    reset_launch_counts()
     with torch.inference_mode():
         out = dot(cur, src)
-    counts = _launch_counts()
+    counts = launch_counts()
     if counts != (0, 0, 0, 0, 1, 0) or not all(torch.isfinite(v).all() for v in out.values()):
         raise AssertionError(f"reg-main dot product: launches #1-#6 {counts}, or non-finite "
                              "outputs")
@@ -1536,7 +1507,7 @@ def phase_reg_train(label: str = "reg-train", parts=None) -> dict:
     before = {k: v.detach().clone() for k, v in watched.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts()
+    reset_launch_counts()
     times, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1545,7 +1516,7 @@ def phase_reg_train(label: str = "reg-train", parts=None) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t1) * 1e3)
         losses.append({k: float(v) for k, v in out.items()})
-    counts = _launch_counts()
+    counts = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     n = TRAIN_STEPS
     if counts != (0, 0, 0, 0, n, n):
@@ -1650,10 +1621,10 @@ def phase_temporal_main() -> dict:
     for mode, extra in (("frame", dict(collect_preds=True)),
                         ("window", dict(use_scan=True, device_scoring=True, collect_preds=True)),
                         ("window-timed", dict(use_scan=True))):
-        _zero_launch_counts()
+        reset_launch_counts()
         res = evaluate_temporal(net, {"scene0": ds}, {"scene0": mesh}, **kw, **extra)
         torch.cuda.synchronize()
-        counts = _launch_counts()
+        counts = launch_counts()
         n = res["n_frames"]
         if n != TEMPORAL_FRAMES or counts != (n, 0, 0, 0, 0, 0):
             raise AssertionError(f"temporal-main {mode}: {n} frames, kernel launches #1-#6 "
@@ -1732,9 +1703,9 @@ def phase_reg_temporal() -> dict:
     for i in range(ds.num_frames):  # render before timing, as temporal-main
         ds.get_frame("scene0", str(i))
     net = reg_net(torch.bfloat16).cuda().eval().cast_to_compute_dtype()
-    _zero_launch_counts()
+    reset_launch_counts()
     res = run_temporal(cfg, net, {"scene0": ds}, SyntheticDataset, regression=True)
-    counts = _launch_counts()
+    counts = launch_counts()
     if res["n_frames"] != frames or counts != (0, 0, 0, 0, frames, 0) or \
             not np.isfinite(res["temporal_score"]):
         raise AssertionError(f"reg-temporal: {res['n_frames']} frames, launches #1-#6 {counts}, "
@@ -2041,12 +2012,12 @@ def phase_fit_resume() -> dict:
                 if "train/loss" in scalars:
                     losses[step] = scalars["train/loss"]
 
-            _zero_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             res = fit(cfg, "bd", device="cuda", max_steps=FIT_STEPS, log_cb=on_log,
                       batch_cb=on_batch, train_flip=False)
             wall = time.perf_counter() - t0
-            launches[name] = _launch_counts()
+            launches[name] = launch_counts()
             if launches[name] != expected[name]:
                 raise AssertionError(f"fit-resume {name}: launches #1-#6 {launches[name]}, "
                                      f"expected {expected[name]}")
@@ -2231,10 +2202,10 @@ def ddp_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
         net = flagship_net(torch.float32).to(dev)
         opt, sched = state.make_optimizer(net.parameters(), lr=1e-4, wd=1e-4)
         step = state.make_bd_train_step(net, opt, sched, generator=torch.Generator().manual_seed(0))
-        _zero_launch_counts()
+        reset_launch_counts()
         losses = step((cur, src), flip=flip)
         result[f"flip{int(flip)}"] = {"losses": {k: float(v) for k, v in losses.items()},
-                                      "launches": _launch_counts()}
+                                      "launches": launch_counts()}
         if rank == 0:
             torch.save({n: p.grad.detach().cpu() for n, p in net.named_parameters()
                         if p.grad is not None}, os.path.join(out_dir, f"grads_flip{int(flip)}.pt"))
@@ -2245,7 +2216,7 @@ def ddp_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launch_counts()
+    reset_launch_counts()
     times = []
     for _ in range(DDP_TIMED_STEPS):
         torch.cuda.synchronize()
@@ -2253,7 +2224,7 @@ def ddp_rank_main(rank: int, world: int, port: int, out_dir: str) -> None:
         step((cur, src))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    result.update(times=times, launches=_launch_counts(),
+    result.update(times=times, launches=launch_counts(),
                   peak_gb=torch.cuda.max_memory_allocated() / 2**30)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
@@ -2564,12 +2535,12 @@ def phase_ar_inference(card: str) -> dict:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         res = cli_inference.main(flags)
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        counts = _launch_counts()
+        counts = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         names = [os.path.basename(p) for p in res["saved"]]
         expected = (AR_FRAMES, 0, 0, 0, 0, 0)
@@ -2820,6 +2791,120 @@ def phase_zoo_model() -> None:
     phase_reg_train_model("zoo-model-reg", ZOO["a"])
 
 
+# ------------------------------------------------------------------ the tools
+
+TOOLS_ITERS = 3  # timed calls of each eval probe; train probes take 2 steps
+ROOFLINE_ROUNDS = (10, 4)  # rounds of cli/roofline.py, eval and --train
+# launches of kernels #1-#4 per call of each probe of the measurement tools
+EVAL_PROBE_LAUNCHES = {"encoder": (0, 0, 0, 0), "matching": (0, 0, 0, 0),
+                       "volume": (1, 0, 0, 0), "cv_encoder": (1, 0, 0, 0),
+                       "trunk(decoder)": (1, 0, 0, 0), "forward_val": (1, 0, 0, 0)}
+TRAIN_PROBE_LAUNCHES = {"full": (1, 1, 4, 4), "fwd_only": (1, 0, 4, 0),
+                        "zero_volume": (0, 0, 4, 4), "trunk_zero": (0, 0, 0, 0)}
+
+
+def _check_probe_launches(label: str, launches: dict, calls: int, expected: dict) -> None:
+    """Raises unless each probe launched #1-#4 `calls` times its row of
+    `expected`, and #5/#6 never."""
+    for probe, per_call in expected.items():
+        want = tuple(n * calls for n in per_call) + (0, 0)
+        if tuple(launches[probe]) != want:
+            raise AssertionError(f"{label}: probe {probe} launched #1-#6 {launches[probe]} over "
+                                 f"{calls} calls, expected {want}")
+
+
+def _check_roofline(label: str, res: dict, expected: dict) -> None:
+    """Raises where a probe's counted call launched other than `expected`
+    once, or where a section reads over 100% of a peak."""
+    _check_probe_launches(label, {p: r["launches"] for p, r in res["probes"].items()}, 1,
+                          {p: e for p, e in expected.items() if p in res["probes"]})
+    over = [(r["section"], r["bf16_pct"], r["hbm_pct"]) for r in res["rows"]
+            if r["bf16_pct"] > 100 or r["hbm_pct"] > 100]
+    if over:
+        raise AssertionError(f"{label}: sections over 100% of a peak: {over}")
+
+
+def _check_work(label: str, got: float, want: float) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: the roofline counts {got:.6e} FLOP a launch, the "
+                             f"kernel's bound {want:.6e}")
+
+
+def phase_tools(kern: dict, kern_bwd: dict, kern_ray: dict) -> dict:
+    """The measurement tools on the card (cli/profile_eval.py at b=1,
+    cli/profile_train.py --batch 12 --json, cli/bench_train.py --batch 12,
+    cli/roofline.py in eval and --train), each probe's launches against
+    EVAL_PROBE_LAUNCHES / TRAIN_PROBE_LAUNCHES, no roofline share over 100%,
+    the roofline's work per launch equal to the work behind the kernel
+    phases' bounds; then make_random_checkpoint -> a training checkpoint ->
+    strip_checkpoint -> a strict load on the card, bit-equal."""
+    import tempfile
+
+    from implicit_depth_tpu_torch.cli import (bench_train, make_random_checkpoint, profile_eval,
+                                              profile_train, roofline, strip_checkpoint)
+    from implicit_depth_tpu_torch.models.bd_net import TRAIN_ONLY_PREFIXES, BDNet
+    from implicit_depth_tpu_torch.train import checkpoint as ckpt_lib
+    from implicit_depth_tpu_torch.train import state
+    from implicit_depth_tpu_torch.weights import load_state_dict
+
+    t0 = time.perf_counter()
+    ev = profile_eval.main(["--batch", "1", "--iters", str(TOOLS_ITERS)])
+    _check_probe_launches("profile-eval", ev["launches"], TOOLS_ITERS, EVAL_PROBE_LAUNCHES)
+    torch.cuda.empty_cache()
+    tr = profile_train.main(["--batch", "12", "--iters", "2", "--json"])
+    _check_probe_launches("profile-train", tr["launches"], 2, TRAIN_PROBE_LAUNCHES)
+    bench = bench_train.main(["--batch", "12", "--iters", str(TOOLS_ITERS)])
+    _check_probe_launches("bench-train", {"full": bench["launches"]}, TOOLS_ITERS,
+                          {"full": TRAIN_PROBE_LAUNCHES["full"]})
+    if not (np.isfinite(bench["first_loss"]) and np.isfinite(bench["loss"])):
+        raise AssertionError(f"bench-train: non-finite losses {bench}")
+    torch.cuda.empty_cache()
+    rf_eval = roofline.main(["--iters", str(ROOFLINE_ROUNDS[0]), "--json"])
+    _check_roofline("roofline", rf_eval, EVAL_PROBE_LAUNCHES)
+    rf_train = roofline.main(["--train", "--iters", str(ROOFLINE_ROUNDS[1]), "--json"])
+    _check_roofline("roofline --train", rf_train, TRAIN_PROBE_LAUNCHES)
+    # the roofline reads the work that the kernels' bounds read
+    _check_work("#1 at b=1", rf_eval["work"][1], kern["flagship bf16"]["flops"])
+    _check_work("#1 at b=12", rf_train["work"][1], kern["train bf16"]["flops"])
+    _check_work("#2 at b=12", rf_train["work"][2], kern_bwd["train bf16"]["flops"])
+    _check_work("#3 at scale 0", rf_train["work"][3][0], kern_ray["fwd"]["flops"])
+    _check_work("#4 at scale 0", rf_train["work"][4][0], kern_ray["bwd"]["flops"])
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = make_random_checkpoint.main(
+            ["--config_file", os.path.join(REPO, "configs/models/implicit_depth.yaml"),
+             "--output", os.path.join(tmp, "random.pt"), "--seed", "0"])
+        net = BDNet(compute_dtype=torch.bfloat16)
+        load_state_dict(net, ckpt_lib.load_weights(weights), optional_prefixes=TRAIN_ONLY_PREFIXES)
+        net = net.cuda()
+        opt, sched = state.make_optimizer(net.parameters())
+        ckpt_lib.save_state(os.path.join(tmp, "ckpt_00000000"), net, opt, sched, step=0,
+                            config={"name": "random"})
+        stripped = strip_checkpoint.main([os.path.join(tmp, "ckpt_00000000"),
+                                          os.path.join(tmp, "stripped.pt")])
+        fresh = BDNet(compute_dtype=torch.bfloat16).cuda()
+        load_state_dict(fresh, {k: v.cuda() for k, v in ckpt_lib.load_weights(stripped).items()})
+        same = all(torch.equal(v, fresh.state_dict()[k]) for k, v in net.state_dict().items())
+        if not same:
+            raise AssertionError("tools: the stripped checkpoint's weights differ from the net's")
+    del net, fresh, opt
+    torch.cuda.empty_cache()
+    wall_s = time.perf_counter() - t0
+    print(f"tools: profile-eval forward_val {ev['ms']['forward_val']:.3f} ms, profile-train full "
+          f"{tr['ms']['full']:.1f} ms, bench-train {bench['ms']:.1f} ms/step at b=12; launches "
+          "as the probe tables; no roofline share over 100%; the roofline's work per launch is "
+          "the bounds'; random -> checkpoint -> stripped weights load strictly, bit-equal; "
+          f"phase wall {wall_s:.1f} s", flush=True)
+    # each kernel's launches on each tool's run (the timed or counted calls)
+    paths = {"profile-eval": tuple(map(sum, zip(*ev["launches"].values()))),
+             "profile-train": tuple(map(sum, zip(*tr["launches"].values()))),
+             "bench-train": bench["launches"],
+             "roofline": tuple(map(sum, zip(*[r["launches"] for res in (rf_eval, rf_train)
+                                              for r in res["probes"].values()])))}
+    return {"paths": paths, "wall_s": wall_s}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2871,6 +2956,7 @@ def main(argv=None) -> int:
     zoo_train = phase_zoo_train()
     zoo_reg = phase_zoo_reg()
     phase_zoo_model()
+    tools = phase_tools(kern, kern_bwd, kern_ray)
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -2919,6 +3005,8 @@ def main(argv=None) -> int:
     kernels[4]["paths"]["zoo-reg"] = zoo_reg["launches"]
     for i in (4, 5):
         kernels[i]["paths"]["zoo-reg-train"] = zoo_reg["train"]["launches"][i]
+    for i, row in enumerate(kernels[:4]):
+        row["paths"].update({tool: n[i] for tool, n in tools["paths"].items()})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -140,11 +140,20 @@ class BDNet(nn.Module):
 
     # ---------------- shared trunk ----------------
     def trunk(self, cur_data: dict, src_data: dict, flip: bool = False,
-              train: bool = False) -> dict:
+              train: bool = False, stop_at: str = "") -> dict:
         """Encoders + cost volume + U-Net. Returns per-scale decoder features
-        (NCHW, unflipped) and the lowest-cost depth. `train` runs the
-        differentiable metadata volume (kernels #1 and #2); the dot volume
-        is differentiable either way (kernels #5 and #6)."""
+        (NCHW, unflipped), the lowest-cost depth and the depth planes. `train`
+        runs the differentiable metadata volume (kernels #1 and #2); the dot
+        volume is differentiable either way (kernels #5 and #6).
+
+        `stop_at` is the profilers' probe (cli/profile_eval.py,
+        cli/roofline.py), with the JAX package's returns: "encoder" ->
+        {"features": image encoder features}; "matching" -> {"features":
+        [m_cur, m_src] + encoder features} (the matching features NHWC,
+        unflipped); "volume" -> {"features": [the (b, d, h, w) volume] +
+        encoder features}, before the volume is re-flipped (the zero volume
+        does not stop there, as in the JAX package); "cv_encoder" ->
+        {"features": CV encoder features}; "" runs the whole trunk."""
         cdt = self.compute_dtype
         cur_image = cur_data["image"].permute(0, 3, 1, 2)             # (b, 3, h, w)
         src_image = src_data["image"].permute(0, 1, 4, 2, 3)          # (b, k, 3, h, w)
@@ -160,6 +169,8 @@ class BDNet(nn.Module):
                                      src_data["world_T_cam"].float())
 
         enc_feats = self.encoder(cur_image.to(cdt))
+        if stop_at == "encoder":
+            return {"features": list(enc_feats)}
 
         all_images = torch.cat([cur_image[:, None], src_image], dim=1)
         mfeats = self.matching(all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
@@ -168,6 +179,8 @@ class BDNet(nn.Module):
         if flip:
             mfeats = mfeats.flip(3)
         m_cur, m_src = mfeats[:, 0], mfeats[:, 1:]
+        if stop_at == "matching":
+            return {"features": [m_cur, m_src] + list(enc_feats)}
 
         planes = geometry.log_depth_planes(self.min_matching_depth, self.max_matching_depth,
                                            self.num_depth_bins, device=m_cur.device)
@@ -185,14 +198,18 @@ class BDNet(nn.Module):
                 volume_fn = self.volume_mlp.fused_train if train else self.volume_mlp.fused
                 volume = volume_fn(m_cur, m_src, *geo)                 # f32
             lowest = cv.lowest_cost_depth(volume.detach(), planes)
+        if stop_at == "volume" and self.feature_volume_type != "zero_cost_volume":
+            return {"features": [volume] + list(enc_feats)}
         if flip:
             volume = volume.flip(3)
 
         cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
+        if stop_at == "cv_encoder":
+            return {"features": cv_feats}
         dec = self.decoder(list(enc_feats[:s]) + cv_feats)
         if flip:
             dec = {i: f.flip(3) for i, f in dec.items()}
-        return {"features": dec, "lowest_cost": lowest}
+        return {"features": dec, "lowest_cost": lowest, "depth_planes": planes}
 
     # ---------------- query heads ----------------
     def run_mlp_train(self, cur_data: dict, features: dict,

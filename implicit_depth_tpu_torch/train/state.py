@@ -36,6 +36,7 @@ autocast.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -88,7 +89,8 @@ def _draw_flip(gen: torch.Generator, train_flip: bool) -> bool:
 def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.0,
                        regularisation_weight: float = 0.5, edge_regularisation: bool = True,
                        train_flip: bool = True,
-                       generator: Optional[torch.Generator] = None) -> Callable:
+                       generator: Optional[torch.Generator] = None,
+                       forward_only: bool = False) -> Callable:
     """Returns step(batch, flip=None, prior_noise=None) -> losses (detached
     tensors). batch = (cur_data, src_data) tensors on the net's device; flip
     None draws from `generator` (Bernoulli(0.5)) when train_flip is set,
@@ -96,7 +98,15 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
     prior's augmentation (bd_net.draw_prior_noise, in the compute dtype)
     from a generator on the batch's device, seeded with the flip
     generator's seed + 1; in a process group, for the global batch, of
-    which this rank takes its rows."""
+    which this rank takes its rows.
+
+    forward_only=True is the profilers' probe (cli/profile_train.py), not a
+    training mode: the step's exact loss path, with the same draws from
+    the generators, under no_grad, and no backward, optimizer or scheduler
+    step. Train-mode batch norm moves its running statistics during the
+    forward; they are put back, so that the net, the optimizer and the
+    scheduler are left bit-equal, as the JAX probe returns its input state.
+    For the same generator state it returns the full step's losses."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     prior_gens: dict = {}  # device -> the prior's generator there
 
@@ -119,14 +129,22 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
             with torch.no_grad():
                 edge = edge_mask_at_rays(cur_data["gt_depth"].float(), cur_data["sampled_rays"])
         net.train()
+        if forward_only:
+            buffers = {name: b.clone() for name, b in net.named_buffers()}
         cdt = net.compute_dtype
         dev = cur_data["image"].device.type
-        with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
-            out = net(cur_data, src_data, flip=flip, prior_noise=prior_noise)
-        preds = {k: v for k, v in out.items() if k.startswith("pred_")}
-        losses = loss_lib.binary_losses(
-            out["query_depth"], out["target_depth"][..., None], preds, pos_weight=pos_weight,
-            regularisation_weight=regularisation_weight, edge_mask=edge)
+        with torch.no_grad() if forward_only else contextlib.nullcontext():
+            with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
+                out = net(cur_data, src_data, flip=flip, prior_noise=prior_noise)
+            preds = {k: v for k, v in out.items() if k.startswith("pred_")}
+            losses = loss_lib.binary_losses(
+                out["query_depth"], out["target_depth"][..., None], preds, pos_weight=pos_weight,
+                regularisation_weight=regularisation_weight, edge_mask=edge)
+        if forward_only:
+            with torch.no_grad():
+                for name, b in net.named_buffers():
+                    b.copy_(buffers[name])
+            return {k: v.detach() for k, v in losses.items()}
         optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         fill_missing_grads(net.parameters())

@@ -61,6 +61,9 @@ back on the card against the CPU, at chip_smoke.py's ar-inference bound.
 The encoder zoo (`-k zoo`): forward_val of the BDNet with the resnet18d
 encoder, the FPN matching encoder and the skip decoder (K=2, D=8, 64x96,
 f32) on the card against the CPU, #1 once, within 1e-4 as the tiny BDNet.
+The profilers' forward-only step (`-k forward_only`): its losses on the
+card against the CPU at chip_smoke.py's MODEL_LOSS_REL, #1 once and #3
+four times, the state bit-equal after it.
 """
 
 import numpy as np
@@ -646,6 +649,48 @@ def test_prior_train_step_gpu_matches_cpu(cuda):
     num = sum(((g_gpu[k] - g_cpu[k]) ** 2).sum().item() for k in g_cpu)
     den = sum((g ** 2).sum().item() for g in g_cpu.values())
     assert (num / den) ** 0.5 <= chip_smoke.MODEL_GRAD_L2, (num / den) ** 0.5
+
+
+def test_forward_only_probe_on_the_card_matches_cpu(cuda):
+    """make_bd_train_step(forward_only=True) of the tiny BDNet in f32, flip
+    on: the losses on the card (#1 once, #3 four times, no backward
+    kernel) against the CPU, held to chip_smoke.py's MODEL_LOSS_REL, and
+    the card's net and AdamW state bit-equal after the probe."""
+    import copy
+
+    import chip_smoke
+
+    from implicit_depth_tpu_torch.models.bd_net import BDNet
+    from implicit_depth_tpu_torch.ops.bounds import launch_counts
+    from implicit_depth_tpu_torch.train import state
+    from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+    from implicit_depth_tpu_torch.weights import init_params
+
+    net = init_params(BDNet(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8),
+                      torch.Generator().manual_seed(0))
+    cur, src = synthetic_bd_batch(batch=2, num_src=2, height=64, width=96, num_rays=64,
+                                  samples_per_ray=8, seed=1)
+    losses = {}
+    for dev in ("cpu", cuda):
+        n = copy.deepcopy(net).to(dev)
+        opt, sched = state.make_optimizer(n.parameters(), lr=1e-4, wd=1e-4)
+        batch = ({k: torch.tensor(v, device=dev) for k, v in cur.items()},
+                 {k: torch.tensor(v, device=dev) for k, v in src.items()})
+        state.make_bd_train_step(n, opt, sched)(batch)  # AdamW holds moments now
+        before = {k: v.clone() for k, v in n.state_dict().items()}
+        opt_before = copy.deepcopy(opt.state_dict())
+        launched = launch_counts()
+        losses[str(dev)] = state.make_bd_train_step(n, opt, sched, forward_only=True)(
+            batch, flip=True)
+        launched = tuple(b - a for a, b in zip(launched, launch_counts()))
+        assert launched == ((1, 0, 4, 0, 0, 0) if dev == cuda else (0,) * 6)
+        assert all(torch.equal(v, n.state_dict()[k]) for k, v in before.items())
+        after = opt.state_dict()["state"]
+        assert all(torch.equal(v, after[i][k]) for i, st in opt_before["state"].items()
+                   for k, v in st.items())
+    for k, ref in losses["cpu"].items():
+        got = losses[str(cuda)][k].cpu()
+        assert abs(got - ref) <= chip_smoke.MODEL_LOSS_REL * abs(ref) + 1e-7, (k, got, ref)
 
 
 def _ddp_child():

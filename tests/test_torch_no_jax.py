@@ -2,7 +2,8 @@
 package: every module of implicit_depth_tpu_torch and chip_smoke.py import
 with `jax`, `flax` and `implicit_depth_tpu` blocked, and afterwards no
 implicit_depth_tpu.* module is loaded (chip_smoke.py's path, the AR demo
-path and the capture loaders also without yaml and PIL); chip_smoke.py
+path, the capture loaders and the measurement and checkpoint tools also
+without yaml and PIL); chip_smoke.py
 refuses to run without a CUDA device or outside the repository."""
 
 import os
@@ -55,7 +56,13 @@ for name in ("chip_smoke", "implicit_depth_tpu_torch.data.synthetic",
              "implicit_depth_tpu_torch.data.hypersim", "implicit_depth_tpu_torch.data.vdr",
              "implicit_depth_tpu_torch.data.seven_scenes", "implicit_depth_tpu_torch.data.colmap",
              "implicit_depth_tpu_torch.data.arkit", "implicit_depth_tpu_torch.data.scanniverse",
-             "implicit_depth_tpu_torch.data.tuples", "implicit_depth_tpu_torch.data.samplers"):
+             "implicit_depth_tpu_torch.data.tuples", "implicit_depth_tpu_torch.data.samplers",
+             # the measurement tools and the checkpoint tools of phase tools
+             "implicit_depth_tpu_torch.utils.profiling", "implicit_depth_tpu_torch.ops.bounds",
+             "implicit_depth_tpu_torch.cli.profile_eval", "implicit_depth_tpu_torch.cli.profile_train",
+             "implicit_depth_tpu_torch.cli.bench_train", "implicit_depth_tpu_torch.cli.roofline",
+             "implicit_depth_tpu_torch.cli.make_random_checkpoint",
+             "implicit_depth_tpu_torch.cli.strip_checkpoint"):
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.startswith("implicit_depth_tpu.")]
 print("ok")
@@ -71,7 +78,7 @@ def _run(args, cwd):
 def test_port_imports_without_jax():
     proc = _run(["-c", _IMPORT_ALL], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 79  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 98  # every module of the port was imported
 
 
 def test_chip_smoke_imports_without_yaml_or_pil():

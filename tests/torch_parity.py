@@ -222,3 +222,23 @@ def reference_state_dict_from_flax(variables_np: dict) -> dict:
                 name = "weight"
             sd[f"{_ref_module_path(top, names)}.{name}"] = arr
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def run_jax_script(name: str, args: list) -> None:
+    """Runs scripts/<name> of the JAX package in this process, as
+    `python scripts/<name> args...` would (runpy with sys.argv patched), to
+    save a subprocess's JAX import. A script that points JAX's compilation
+    cache into the repository gets it pointed nowhere again."""
+    import os
+    import runpy
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        name)
+    argv, sys_path = sys.argv, list(sys.path)
+    sys.argv = [path] + list(args)
+    try:
+        runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv, sys.path[:] = argv, sys_path
+        jax.config.update("jax_compilation_cache_dir", None)
