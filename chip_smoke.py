@@ -196,6 +196,17 @@ non-zero:
                 cli/make_random_checkpoint.py -> a training checkpoint of the
                 card's net -> cli/strip_checkpoint.py -> a strict load on the
                 card, bit-equal.
+32. coverage:  the last functions ported from the JAX package, on the card
+                against the CPU: `build_warped_views` at the dot model's
+                flagship shape (b=1, K=7, D=64, 96x128, C=16, bf16), #5 once,
+                then `overall_source_mask` from it (equal but at pixels
+                where some view's sample lies within 1e-4 px of the 2 px
+                border, which are counted);
+                `TemporalEvaluator.render_plane` at 192x256 for a near and a
+                grazing camera, and `camera_rays_from_origin` from the source
+                origins to the flagship plane's points (1e-5 of the largest
+                value; hit or miss may differ only within 1e-4 of the
+                plane's edge); one JSON line with the seconds and counts.
 Then one JSON line with the six kernels' results (with each kernel's
 launches on every path that runs it) and, last, the device line.
 
@@ -2905,6 +2916,168 @@ def phase_tools(kern: dict, kern_bwd: dict, kern_ray: dict) -> dict:
     return {"paths": paths, "wall_s": wall_s}
 
 
+# ------------------------------------------------------------- coverage
+
+COVERAGE = dict(B=1, K=7, H=96, W=128, D=64, C=16)  # dot_product_model.yaml's volume, b=1
+COVERAGE_PLANE_HW = (192, 256)  # the temporal evaluator's depth size
+COVERAGE_REL = 1e-5  # card vs CPU, of the largest value
+BORDER_TOL = 1e-4  # px, or m at the plane's edge: where f32 sums in another order may flip
+
+
+def coverage_geometry(B: int, K: int, H: int, W: int, seed: int = 0) -> tuple:
+    """Seeded f32 (src_K, src_T_cur, cur_invK, cur_T_src) of K views around
+    the current one at matching resolution; every second view (1, 3, ...)
+    is turned by ~70 degrees and pushed back, so that part of the image
+    leaves it and some of it falls behind it."""
+    rng = np.random.RandomState(seed)
+    Kmat = np.eye(4)
+    Kmat[0, 0], Kmat[1, 1], Kmat[0, 2], Kmat[1, 2] = 0.9 * W, 0.9 * W, W / 2, H / 2
+    T = np.tile(np.eye(4), (B, K, 1, 1))
+    for bi in range(B):
+        for ki in range(K):
+            R = _rot(0, rng.uniform(-0.15, 0.15)) @ _rot(1, rng.uniform(-0.25, 0.25))
+            t = rng.uniform(-0.4, 0.4, 3)
+            if ki % 2 == 1:
+                R, t = _rot(1, 1.2) @ R, t + [0.0, 0.0, -1.0]
+            T[bi, ki, :3, :3], T[bi, ki, :3, 3] = R, t
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)  # noqa: E731
+    return (f32(np.broadcast_to(Kmat, (B, K, 4, 4))), f32(T),
+            f32(np.broadcast_to(np.linalg.inv(Kmat), (B, 4, 4))), f32(np.linalg.inv(T)))
+
+
+def _pixel_rays(h: int, w: int, K33: np.ndarray) -> np.ndarray:
+    xs, ys = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5)
+    return np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(K33.astype(np.float64)).T
+
+
+def mask_border_pixels(src_K, src_T_cur, cur_invK, plane: float, H: int, W: int) -> np.ndarray:
+    """(b, h, w) bool, in float64: pixels where some view's sample at depth
+    `plane` lies within BORDER_TOL px of overall_source_mask's border
+    (u = 2 or W - 2, v = 2 or H - 2)."""
+    K33, T = src_K[..., :3, :3].astype(np.float64), src_T_cur.astype(np.float64)
+    A = K33 @ T[..., :3, :3] @ cur_invK[:, None, :3, :3].astype(np.float64)
+    M = plane * A
+    M[..., :, 2] += (K33 @ T[..., :3, 3:])[..., 0]
+    xs, ys = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    xyz = np.einsum("bkij,hwj->bkhwi", M, np.stack([xs, ys, np.ones_like(xs)], -1))
+    z = np.maximum(xyz[..., 2], 1e-5)
+    u, v = xyz[..., 0] / z, xyz[..., 1] / z
+    near = ((np.abs(u - 2) < BORDER_TOL) | (np.abs(u - (W - 2)) < BORDER_TOL)
+            | (np.abs(v - 2) < BORDER_TOL) | (np.abs(v - (H - 2)) < BORDER_TOL))
+    return near.any(axis=1)
+
+
+def plane_edge_pixels(anchor_world_T_cam, dist: float, cam_T_world, K44, h: int, w: int,
+                      half_extent: float = 12.8) -> np.ndarray:
+    """(h, w) bool, in float64: pixels whose ray meets the temporal plane
+    within BORDER_TOL of its edge (render_plane_depth's +-half_extent)."""
+    A = np.linalg.inv(np.asarray(anchor_world_T_cam, np.float64)) @ np.linalg.inv(
+        np.asarray(cam_T_world, np.float64))
+    d = _pixel_rays(h, w, np.asarray(K44)[:3, :3]) @ A[:3, :3].T
+    s = (dist - A[2, 3]) / d[..., 2]
+    reach = np.maximum(np.abs(A[0, 3] + s * d[..., 0]), np.abs(A[1, 3] + s * d[..., 1]))
+    return np.abs(reach - half_extent) < BORDER_TOL
+
+
+def source_mask_on_card(B: int, K: int, H: int, W: int, D: int, C: int, seed: int = 0) -> dict:
+    """build_warped_views on the card (#5 once) and overall_source_mask from
+    its WarpedViews, against overall_source_mask on the CPU from the same
+    WarpedViews and geometry; raises where the two differ off the border
+    pixels, or where the mask is all true or all false."""
+    from implicit_depth_tpu_torch.core import geometry
+    from implicit_depth_tpu_torch.volumes import cost_volume as cv
+
+    geo_np = coverage_geometry(B, K, H, W, seed)
+    src_K, src_T_cur, cur_invK, cur_T_src = (torch.tensor(x) for x in geo_np)
+    gen = torch.Generator().manual_seed(seed)
+    cur, src = torch.randn((B, H, W, C), generator=gen), torch.randn((B, K, H, W, C), generator=gen)
+    planes = geometry.log_depth_planes(0.25, 5.0, D)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        wv = cv.build_warped_views(cur.cuda().to(bf16), src.cuda().to(bf16), src_K.cuda(),
+                                   src_T_cur.cuda(), cur_invK.cuda(), cur_T_src.cuda(),
+                                   planes.cuda(), compute_dtype=bf16)
+        got = cv.overall_source_mask(wv, src_K.cuda(), src_T_cur.cuda(), cur_invK.cuda(), H, W)
+        torch.cuda.synchronize()
+    ref = cv.overall_source_mask(cv.WarpedViews(*(x.cpu() for x in wv)), src_K, src_T_cur,
+                                 cur_invK, H, W)
+    border = mask_border_pixels(*geo_np[:3], float(planes[-1]), H, W)
+    differ = (got.cpu() != ref).numpy()
+    if got.dtype != torch.bool or got.shape != (B, H, W) or (differ & ~border).any() \
+            or not ref.any() or ref.all():
+        raise AssertionError(f"overall_source_mask: card and CPU differ at "
+                             f"{int((differ & ~border).sum())} pixels off the border, "
+                             f"true share {ref.float().mean().item():.3f}")
+    return {"mask_mismatch": int(differ.sum()), "mask_border_pixels": int(border.sum()),
+            "mask_true_share": ref.float().mean().item()}
+
+
+def _rel_err(got, ref) -> float:
+    return ((got.cpu().double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
+def phase_coverage() -> dict:
+    """The last functions ported from the JAX package, on the card against
+    the CPU (module docstring, phase 32)."""
+    from implicit_depth_tpu_torch.core import geometry
+    from implicit_depth_tpu_torch.eval.temporal import TemporalEvaluator
+
+    t0 = time.time()
+    reset_launch_counts()
+    res = source_mask_on_card(**COVERAGE)
+    launches = launch_counts()
+    if launches != (0, 0, 0, 0, 1, 0):
+        raise AssertionError(f"coverage: launches #1-#6 {launches}, expected #5 once")
+
+    # render_plane: a camera near the anchor and one at a grazing angle
+    h, w = COVERAGE_PLANE_HW
+    rng = np.random.RandomState(3)
+    ev = TemporalEvaluator(h, w)
+    world_T_anchor = np.eye(4)
+    world_T_anchor[:3, :3] = _rot(0, 0.2) @ _rot(1, -0.3)
+    world_T_anchor[:3, 3] = [0.4, -0.2, 0.1]
+    ev.initialise_new_plane(rng.uniform(0.5, 4.0, (h, w)).astype(np.float32), world_T_anchor)
+    K44 = np.eye(4, dtype=np.float32)
+    K44[0, 0], K44[1, 1], K44[0, 2], K44[1, 2] = 0.8 * w, 0.8 * w, w / 2, h / 2
+    plane_err, plane_mismatch, plane_edge = 0.0, 0, 0
+    # (rotation about y, position) in the anchor's frame; the grazing camera
+    # looks along the plane, 82 degrees from its normal, from 0.8 m in front
+    for angle, position in ((0.1, [0.2, -0.1, 0.3]),
+                            (np.deg2rad(82.0), [-6.0, 0.3, ev.plane_distance - 0.8])):
+        anchor_T_cam = np.eye(4)
+        anchor_T_cam[:3, :3], anchor_T_cam[:3, 3] = _rot(1, angle), position
+        cam_T_world = np.linalg.inv(world_T_anchor @ anchor_T_cam).astype(np.float32)
+        got = ev.render_plane(torch.tensor(cam_T_world).cuda(), torch.tensor(K44).cuda())
+        ref = ev.render_plane(cam_T_world, K44, device="cpu")
+        if got.device.type != "cuda":
+            raise AssertionError("render_plane: the result is not on the card")
+        edge = plane_edge_pixels(ev.anchor_pose, ev.plane_distance, cam_T_world, K44, h, w)
+        differ = ((got.cpu() > 0) != (ref > 0)).numpy()
+        both = (got.cpu() > 0) & (ref > 0)
+        plane_err = max(plane_err, _rel_err(got.cpu()[both], ref[both]) if both.any() else 0.0)
+        plane_mismatch += int(differ.sum())
+        plane_edge += int(edge.sum())
+        if (differ & ~edge).any() or plane_err > COVERAGE_REL or (ref > 0).float().mean() < 0.2:
+            raise AssertionError(f"render_plane: card vs CPU max error {plane_err:.3e}, "
+                                 f"{int((differ & ~edge).sum())} hit/miss pixels off the edge")
+
+    # camera_rays_from_origin: source origins to the flagship points at the last plane
+    B, K, H, W = (COVERAGE[x] for x in "BKHW")
+    _, _, cur_invK, cur_T_src = coverage_geometry(B, K, H, W)
+    pts = torch.tensor(5.0 * _pixel_rays(H, W, np.linalg.inv(cur_invK[0, :3, :3]))
+                       .reshape(1, 1, H * W, 3), dtype=torch.float32).expand(B, K, H * W, 3)
+    origins = torch.tensor(cur_T_src[..., :3, 3])
+    rays = geometry.camera_rays_from_origin(pts.cuda(), origins.cuda())
+    rays_err = _rel_err(rays, geometry.camera_rays_from_origin(pts, origins))
+    if rays.shape != (B, K, H * W, 3) or rays_err > COVERAGE_REL:
+        raise AssertionError(f"camera_rays_from_origin: card vs CPU max error {rays_err:.3e}")
+    res.update(plane_mismatch=plane_mismatch, plane_edge_pixels=plane_edge,
+               plane_max_rel_err=plane_err, rays_max_rel_err=rays_err, launches=list(launches),
+               seconds=time.time() - t0)
+    print(json.dumps({"phase": "coverage", **res}), flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2957,6 +3130,7 @@ def main(argv=None) -> int:
     zoo_reg = phase_zoo_reg()
     phase_zoo_model()
     tools = phase_tools(kern, kern_bwd, kern_ray)
+    coverage = phase_coverage()
     csrc, tpu = "implicit_depth_tpu_torch/csrc/", "implicit_depth_tpu/ops/"
     rows = (("fused_metadata_volume", "fused_volume.cu", "fused_volume.py:90",
              kern["flagship bf16"], train_res["launches"][0]),
@@ -3003,6 +3177,7 @@ def main(argv=None) -> int:
         for i, row in enumerate(kernels[:4]):
             row["paths"][f"zoo-train-{name}"] = r["launches"][i]
     kernels[4]["paths"]["zoo-reg"] = zoo_reg["launches"]
+    kernels[4]["paths"]["coverage"] = coverage["launches"][4]
     for i in (4, 5):
         kernels[i]["paths"]["zoo-reg-train"] = zoo_reg["train"]["launches"][i]
     for i, row in enumerate(kernels[:4]):

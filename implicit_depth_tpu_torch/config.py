@@ -2,8 +2,9 @@
 
 Copy of implicit_depth_tpu/config.py without `parse_and_merge` and its
 compile-cache helper (those import JAX): `Config`, `build_parser`,
-`load_yaml_options`, `merge_dict`, `_coerce`. `yaml` is imported where a
-file is read, so that the module imports without it.
+`load_yaml_options`, `merge_dict`, `_coerce`, `save_config`. `yaml` is
+imported where a file is read or written, so that the module imports
+without it.
 
 The original replaces the reference's Options dataclass + OptionsHandler (options.py:9-394)
 with the same two-file (model config + data config) + CLI layering, but:
@@ -220,3 +221,10 @@ def parse_config(argv=None) -> tuple[Config, str]:
         elif isinstance(raw, str):
             setattr(cfg, name, _coerce(name, raw))
     return cfg, args.device
+
+
+def save_config(cfg: Config, path: str) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, default_flow_style=False)

@@ -98,6 +98,12 @@ def normalize(v: Tensor, dim: int = -1, eps: float = 1e-12) -> Tensor:
     return v / torch.clamp(torch.linalg.norm(v, dim=dim, keepdim=True), min=eps)
 
 
+def camera_rays_from_origin(points_n3: Tensor, origin_3: Tensor) -> Tensor:
+    """Unit rays (..., n, 3) from a camera origin (..., 3) to points
+    (..., n, 3); the origin broadcasts over the points."""
+    return normalize(points_n3 - origin_3[..., None, :], dim=-1)
+
+
 def rotx(t: float) -> np.ndarray:
     c, s = np.cos(t), np.sin(t)
     return np.array([[1, 0, 0], [0, c, -s], [0, s, c]], dtype=np.float64)

@@ -112,6 +112,22 @@ class ResultsAverager:
         for k, v in metrics.items():
             print(f"{k:8}: {v:.4f}")
 
+    def print_sheets_friendly(self, print_exp_name: bool = True,
+                              include_metrics_names: bool = False,
+                              print_running_metrics: bool = True) -> None:
+        """The metrics as one comma-separated row of values (under a row of
+        their names with `include_metrics_names`), for pasting into a
+        spreadsheet."""
+        metrics = self._metrics(print_running_metrics)
+        if not metrics:
+            print("WARNING: No valid metrics to print.")
+            return
+        if print_exp_name:
+            print(f"{self.exp_name}, {self.metrics_name}")
+        if include_metrics_names:
+            print("".join(f"{k:8} " for k in metrics))
+        print("".join(f"{v:.4f},".ljust(8) + " " for v in metrics.values()))
+
     def pretty_print_metric_table(self, metric_name: str = "iou",
                                   thresholds=np.linspace(0.3, 0.7, 5),
                                   depths=(1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 4.5),

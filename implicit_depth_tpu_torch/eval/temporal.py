@@ -14,8 +14,10 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
-from implicit_depth_tpu_torch.eval.rasterizer import load_ply, sample_vertex_predictions
+from implicit_depth_tpu_torch.eval.rasterizer import (load_ply, render_plane_depth,
+                                                      sample_vertex_predictions)
 
 
 class TemporalEvaluator:
@@ -45,6 +47,20 @@ class TemporalEvaluator:
         self.anchor_pose = np.asarray(world_T_cam_44, np.float64)
         self.plane_distance = float(np.nanquantile(depth_gt_hw, 0.75))
         self.vertex_predictions = []
+
+    def render_plane(self, cam_T_world_44, K_44, device=None) -> torch.Tensor:
+        """(h, w) f32 depth of the current plane in this camera, 0 where a
+        pixel's ray misses it, on `device` (by default K_44's device, which
+        must then be a tensor)."""
+        if device is None:
+            if not isinstance(K_44, torch.Tensor):
+                raise ValueError("render_plane: pass a device, or K_44 as a tensor on one")
+            device = K_44.device
+        f32 = dict(dtype=torch.float32, device=device)
+        return render_plane_depth(
+            torch.as_tensor(self.anchor_pose, **f32), torch.as_tensor(self.plane_distance, **f32),
+            torch.as_tensor(cam_T_world_44, **f32), torch.as_tensor(K_44, **f32),
+            self.height, self.width)
 
     # ---- per-frame update ----------------------------------------------
     @staticmethod

@@ -1,7 +1,8 @@
 """Shared network blocks (torch, NCHW inside the conv stacks).
 
 Counterpart of implicit_depth_tpu/models/blocks.py:
-- BasicBlock: norm-free residual block, bias convs, LeakyReLU(0.2);
+- BasicBlock: norm-free residual block, bias convs, LeakyReLU(0.2)
+  (leaky_relu02);
 - DoubleBasicBlock: BasicBlock x num_repeats;
 - MLP: Linear layers with LeakyReLU(0.01) between them, on the last axis;
 - instance_norm: nn.InstanceNorm2d defaults, f32 statistics;
@@ -17,6 +18,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
+
+
+def leaky_relu02(x: Tensor) -> Tensor:
+    return F.leaky_relu(x, 0.2)
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:
@@ -41,9 +46,9 @@ class BasicBlock(nn.Module):
             self.downsample = ds(cin, features, stride, bias=True)
 
     def forward(self, x: Tensor) -> Tensor:
-        out = self.conv2(F.leaky_relu(self.conv1(x), 0.2))
+        out = self.conv2(leaky_relu02(self.conv1(x)))
         identity = x if self.downsample is None else self.downsample(x)
-        return F.leaky_relu(out + identity, 0.2)
+        return leaky_relu02(out + identity)
 
 
 class DoubleBasicBlock(nn.Module):

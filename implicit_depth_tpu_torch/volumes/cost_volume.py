@@ -1,5 +1,6 @@
 """Plane-sweep warp of the source views and its metadata (torch, NHWC),
-and the dot-product and zero cost volumes.
+the dot-product and zero cost volumes, and the mask of pixels that some
+source view sees at the last plane.
 
 Counterpart of implicit_depth_tpu/volumes/cost_volume.py. Every source view
 is warped to every depth plane with `F.grid_sample` semantics (bilinear,
@@ -167,3 +168,19 @@ def zero_cost_volume(batch: int, num_planes: int, h: int, w: int, dtype=torch.fl
 def lowest_cost_depth(cost_bdhw: Tensor, depth_planes_d: Tensor) -> Tensor:
     """Depth of the arg-max plane, (b, h, w)."""
     return depth_planes_d[torch.argmax(cost_bdhw, dim=1)]
+
+
+def overall_source_mask(wv: WarpedViews, src_K_bk44: Tensor, src_T_cur_bk44: Tensor,
+                        cur_invK_b44: Tensor, h: int, w: int) -> Tensor:
+    """(b, h, w) bool: true where any source view is usable at the last
+    depth plane, i.e. its sample lies strictly inside a 2 px border (z
+    clamped at 1e-5, as in the warp, so "in front of the view" always
+    holds). Geometry in f32 with autocast off."""
+    with torch.autocast(wv.depth_planes.device.type, enabled=False):
+        M = geometry.plane_homographies(src_K_bk44.float(), src_T_cur_bk44.float(),
+                                        cur_invK_b44.float(), wv.depth_planes[-1:].float())[:, :, 0]
+        grid_hw3 = geometry.pixel_grid(h, w, device=M.device)
+        xyz = torch.einsum("bkij,hwj->bkhwi", M, grid_hw3)
+        z = torch.clamp(xyz[..., 2], min=1e-5)
+        u, v = xyz[..., 0] / z, xyz[..., 1] / z
+        return ((u > 2) & (u < w - 2) & (v > 2) & (v < h - 2)).any(dim=1)

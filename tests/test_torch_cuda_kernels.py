@@ -64,6 +64,9 @@ f32) on the card against the CPU, #1 once, within 1e-4 as the tiny BDNet.
 The profilers' forward-only step (`-k forward_only`): its losses on the
 card against the CPU at chip_smoke.py's MODEL_LOSS_REL, #1 once and #3
 four times, the state bit-equal after it.
+The last functions ported from the JAX package (`-k overall_source_mask`):
+overall_source_mask from build_warped_views on the card (#5 once) against
+the CPU, equal but within 1e-4 px of its border.
 """
 
 import numpy as np
@@ -860,3 +863,18 @@ def test_ar_inference_with_the_prior_on_the_card_matches_cpu(cuda, tmp_path):
     res = chip_smoke.ar_gpu_vs_cpu(net, ds, renders, str(tmp_path / "out"), 3)
     assert res["launches"] == 3
     assert res["share"] >= chip_smoke.AR_SHARE, res
+
+
+def test_overall_source_mask_on_the_card_matches_cpu(cuda):
+    """build_warped_views on the card at a small shape (#5 once), then
+    overall_source_mask from its WarpedViews on the card against the CPU:
+    equal but at pixels where some view's sample lies within 1e-4 px of
+    the 2 px border (chip_smoke.source_mask_on_card, as phase coverage)."""
+    import chip_smoke
+    from implicit_depth_tpu_torch.ops import warp_kernel as wk
+
+    before = wk.warp_planes.launches
+    res = chip_smoke.source_mask_on_card(B=2, K=3, H=24, W=32, D=4, C=16)
+    assert wk.warp_planes.launches == before + 1
+    assert res["mask_mismatch"] <= res["mask_border_pixels"]
+    assert 0.5 < res["mask_true_share"] < 1.0

@@ -107,6 +107,21 @@ def test_config_copy_merges_the_same():
     assert cfg.max_steps == 7 and cfg.dataset == "synthetic" and cfg.precision == 16
 
 
+@pytest.mark.parametrize("fields", [{}, {"name": "x", "lr": 5e-4, "image_encoder_name": "tiny",
+                                         "lr_steps": [3, 9], "use_prior": True}],
+                         ids=["defaults", "changed"])
+def test_save_config_writes_the_same_bytes(tmp_path, fields):
+    """save_config's YAML equals the JAX package's byte for byte, and the
+    JAX package's round trip (tests/test_config.py) holds on the port."""
+    jpath, path = str(tmp_path / "jax.yaml"), str(tmp_path / "port.yaml")
+    jconfig.save_config(jconfig.Config(**fields), jpath)
+    config.save_config(config.Config(**fields), path)
+    with open(jpath, "rb") as jf, open(path, "rb") as f:
+        assert f.read() == jf.read()
+    loaded = config.merge_dict(config.Config(), config.load_yaml_options(path))
+    assert dataclasses.asdict(loaded) == dataclasses.asdict(config.Config(**fields))
+
+
 def test_registry_names_what_is_not_copied():
     """Every name the JAX registry resolves resolves in the port to the
     port's copy of that class (the same name, in the port's module of the

@@ -37,6 +37,16 @@ def test_basic_block(cin, features, stride):
         assert_close(nhwc(tm(nchw(x))), jax.jit(jm.apply)(v, x), REL)
 
 
+def test_leaky_relu02_matches_flax():
+    """Elementwise, with zeros, both signs, large magnitudes and infinities."""
+    import flax.linen as fnn
+
+    x = np.concatenate([_x((1000,), seed=3) * 10.0,
+                        np.float32([0.0, -0.0, 1e-30, -1e-30, 3e38, -3e38, np.inf, -np.inf])])
+    got = blocks.leaky_relu02(torch.tensor(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(fnn.leaky_relu(jnp.asarray(x), 0.2)))
+
+
 def test_double_basic_block():
     x = _x((1, 8, 12, 6))
     jm = jblocks.DoubleBasicBlock(10)

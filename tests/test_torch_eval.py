@@ -108,6 +108,39 @@ def test_results_averager(tmp_path):
     assert json.loads((tmp_path / "a.json").read_text()) == json.loads((tmp_path / "b.json").read_text())
 
 
+def test_print_sheets_friendly_prints_what_jax_prints(capsys):
+    """The same signature and defaults, and the same stdout for the same
+    update_results inputs, with and without the names row and for the
+    running and the final metrics; an averager with nothing to print warns
+    alike."""
+    import inspect
+
+    assert inspect.signature(metrics.ResultsAverager.print_sheets_friendly) == \
+        inspect.signature(jmetrics.ResultsAverager.print_sheets_friendly)
+    ours, theirs = metrics.ResultsAverager("x", "frame"), jmetrics.ResultsAverager("x", "frame")
+
+    def printed(avg, **kw):
+        capsys.readouterr()
+        avg.print_sheets_friendly(**kw)
+        return capsys.readouterr().out
+
+    assert printed(ours) == printed(theirs) == "WARNING: No valid metrics to print.\n"
+    rng = np.random.RandomState(5)
+    for _ in range(3):
+        e = {"iou_d_1.5": rng.rand(), "abs_rel": 10 * rng.rand(), "model_time": 100 * rng.rand()}
+        ours.update_results(e)
+        theirs.update_results(e)
+    kws = [dict(include_metrics_names=n, print_running_metrics=r, print_exp_name=x)
+           for n in (False, True) for r in (True, False) for x in (True, False)]
+    # before compute_final_average the final metrics are empty: both warn
+    assert printed(ours, print_running_metrics=False) == printed(theirs, print_running_metrics=False)
+    for avg in (ours, theirs):
+        avg.compute_final_average()
+    for kw in kws + [{}]:
+        got = printed(ours, **kw)
+        assert got == printed(theirs, **kw) and "," in got
+
+
 @pytest.fixture(scope="module")
 def eval_setup():
     """Tiny BD model on the synthetic_smoke sizes (96x64, 3 views, 8 bins)."""

@@ -66,6 +66,23 @@ def test_pose_distance_and_normalize():
     assert_close(geometry.normalize(t(v)), jgeo.normalize(v), 1e-6)
 
 
+@pytest.mark.parametrize("lead", [(3,), (2, 4)], ids=["batch", "batch_views"])
+def test_camera_rays_from_origin(lead):
+    """Unit rays from origins (*lead, 3) to points (*lead, n, 3), the
+    origin broadcast over the points; a point at its origin gives the zero
+    ray (the norm's clamp at eps) on both sides."""
+    rng = np.random.RandomState(3)
+    pts = rng.uniform(-4.0, 4.0, lead + (9, 3)).astype(np.float32)
+    origin = rng.uniform(-1.0, 1.0, lead + (3,)).astype(np.float32)
+    pts[(0,) * len(lead) + (4,)] = origin[(0,) * len(lead)]
+    got = geometry.camera_rays_from_origin(t(pts), t(origin))
+    ref = jax.jit(jgeo.camera_rays_from_origin)(pts, origin)
+    assert got.shape == lead + (9, 3)
+    assert_close(got, ref, 1e-6)
+    zero = (0,) * len(lead) + (4,)
+    assert not np.asarray(ref)[zero].any() and not got.numpy()[zero].any()
+
+
 def test_backproject_and_project():
     rng = np.random.RandomState(2)
     b, h, w = 2, 6, 9

@@ -111,6 +111,53 @@ def test_render_plane_depth_matches_jax():
             np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
 
 
+def test_render_plane_matches_jax():
+    """TemporalEvaluator.render_plane after initialise_new_plane on a seeded
+    depth map and pose: equal to the JAX evaluator's within 1e-5 of the
+    largest depth, for a camera near the anchor and one that sees the plane
+    at a grazing angle (82 degrees from its normal). Hit and miss pixels
+    agree but where the ray meets the rectangle's edge within 1e-4 of its
+    half extent (f32 on both sides); those are counted and are the only
+    exceptions."""
+    import chip_smoke
+    from implicit_depth_tpu.eval.temporal import TemporalEvaluator as JTemporalEvaluator
+
+    rng = np.random.RandomState(7)
+    h, w = 48, 64
+    depth = rng.uniform(0.5, 4.0, (h, w)).astype(np.float32)
+    depth[:4] = np.nan
+    world_T_anchor = np.linalg.inv(_pose(rng)).astype(np.float32)
+    ev, jev = TemporalEvaluator(h, w), JTemporalEvaluator(h, w)
+    for e in (ev, jev):
+        e.initialise_new_plane(depth, world_T_anchor)
+    dist = ev.plane_distance
+    grazing = np.eye(4)
+    grazing[:3, :3] = _rot(1, np.deg2rad(82.0))
+    grazing[:3, 3] = [-6.0, 0.3, dist - 0.8]
+    near = np.eye(4)
+    near[:3, :3] = _rot(0, 0.1) @ _rot(1, -0.15)
+    near[:3, 3] = [0.2, -0.1, 0.3]
+    K = _K44(h, w)
+    for label, anchor_T_cam in (("near", near), ("grazing", grazing)):
+        cam_T_world = np.linalg.inv(world_T_anchor.astype(np.float64) @ anchor_T_cam)
+        cam_T_world = cam_T_world.astype(np.float32)
+        ref = np.asarray(jev.render_plane(cam_T_world, K))
+        got = ev.render_plane(torch.tensor(cam_T_world), torch.tensor(K))
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        got = got.numpy()
+        np.testing.assert_array_equal(
+            ev.render_plane(cam_T_world, K, device="cpu").numpy(), got)
+        edge = chip_smoke.plane_edge_pixels(world_T_anchor, dist, cam_T_world, K, h, w)
+        differ = (got > 0) != (ref > 0)
+        assert not (differ & ~edge).any(), (label, int(differ.sum()), int(edge.sum()))
+        assert (ref > 0).mean() > 0.2 and (ref == 0).any() == (label == "grazing"), label
+        both = (got > 0) & (ref > 0)
+        np.testing.assert_allclose(got[both], ref[both], rtol=0,
+                                   atol=1e-5 * np.abs(ref).max(), err_msg=label)
+    with pytest.raises(ValueError):
+        ev.render_plane(cam_T_world, K)
+
+
 def test_rasterizer_bindings_bit_equal(mesh, scene):
     verts, faces = ras.load_ply(mesh)
     jverts, jfaces = jras.load_ply(mesh)

@@ -9,6 +9,7 @@ in another order move bilinear weights by ~1e-7); the first-layer operands
 the TPU kernel to the same reference.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,6 +163,38 @@ def test_dispatch_rejects_bad_operands(case):
     strided[0] = ops[0].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError):
         fused_volume.fused_metadata_volume(*strided)
+
+
+def test_overall_source_mask_matches_jax():
+    """At 24x32, K=2, 4 planes, b=2 seeded poses (chip_smoke's coverage
+    geometry: each second view turned by ~70 degrees and pushed back, so
+    that part of the image falls out of it and behind it): the masks are
+    equal but at pixels where some view's u or v lies within 1e-4 px of a
+    border (2 or w-2, 2 or h-2; f32 homographies summed in another order),
+    which are counted and are the only exceptions. Under bf16 autocast the
+    port's mask is the same: its geometry stays f32."""
+    import chip_smoke
+
+    b, k, h, w, c, d = 2, 2, 24, 32, 16, 4
+    rng = np.random.RandomState(11)
+    src_K, src_T_cur, cur_invK, cur_T_src = chip_smoke.coverage_geometry(b, k, h, w, seed=11)
+    planes = np.asarray(jgeo.log_depth_planes(0.25, 5.0, d))
+    cur = rng.randn(b, h, w, c).astype(np.float32)
+    src = rng.randn(b, k, h, w, c).astype(np.float32)
+    geo = (src_K, src_T_cur, cur_invK, cur_T_src, planes)
+    jwv = jax.jit(jcv.build_warped_views)(cur, src, *geo)
+    wv = cost_volume.build_warped_views(t(cur), t(src), *(t(x) for x in geo))
+    ref = np.asarray(jax.jit(jcv.overall_source_mask, static_argnums=(4, 5))(
+        jwv, src_K, src_T_cur, cur_invK, h, w))
+    got = cost_volume.overall_source_mask(wv, t(src_K), t(src_T_cur), t(cur_invK), h, w)
+    assert got.dtype == torch.bool and got.shape == (b, h, w)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        assert torch.equal(cost_volume.overall_source_mask(
+            wv, t(src_K), t(src_T_cur), t(cur_invK), h, w), got)
+    near = chip_smoke.mask_border_pixels(src_K, src_T_cur, cur_invK, float(planes[-1]), h, w)
+    differ = got.numpy() != ref
+    assert not (differ & ~near).any(), (int(differ.sum()), int(near.sum()))
+    assert ref.any() and not ref.all() and not ref[0].all() and not ref[1].all()
 
 
 def test_lowest_cost_depth():
