@@ -48,6 +48,7 @@ from implicit_depth_tpu_torch.models.decoders import NUM_CH_DEC, BinaryMLPNetwor
 from implicit_depth_tpu_torch.models.depth_net import (VOLUME_TYPES, depth_decoder, image_encoder,
                                                        matching_encoder)
 from implicit_depth_tpu_torch.models.volume_mlp import MetadataVolumeMLP
+from implicit_depth_tpu_torch.utils.profiling import span
 from implicit_depth_tpu_torch.volumes import cost_volume as cv
 
 Tensor = torch.Tensor
@@ -153,62 +154,72 @@ class BDNet(nn.Module):
         unflipped); "volume" -> {"features": [the (b, d, h, w) volume] +
         encoder features}, before the volume is re-flipped (the zero volume
         does not stop there, as in the JAX package); "cv_encoder" ->
-        {"features": CV encoder features}; "" runs the whole trunk."""
+        {"features": CV encoder features}; "" runs the whole trunk.
+
+        Each stage runs in its span (utils/profiling.py::SPANS), which an
+        early return closes."""
         cdt = self.compute_dtype
-        cur_image = cur_data["image"].permute(0, 3, 1, 2)             # (b, 3, h, w)
-        src_image = src_data["image"].permute(0, 1, 4, 2, 3)          # (b, k, 3, h, w)
-        if flip:
-            cur_image, src_image = cur_image.flip(3), src_image.flip(4)
-        b, k = src_image.shape[:2]
-        no_autocast = torch.autocast(cur_image.device.type, enabled=False)
+        with span("idt.trunk.encoder"):
+            cur_image = cur_data["image"].permute(0, 3, 1, 2)         # (b, 3, h, w)
+            src_image = src_data["image"].permute(0, 1, 4, 2, 3)      # (b, k, 3, h, w)
+            if flip:
+                cur_image, src_image = cur_image.flip(3), src_image.flip(4)
+            b, k = src_image.shape[:2]
+            no_autocast = torch.autocast(cur_image.device.type, enabled=False)
 
-        with no_autocast:
-            src_T_cur = torch.einsum("bkij,bjl->bkil", src_data["cam_T_world"].float(),
-                                     cur_data["world_T_cam"].float())
-            cur_T_src = torch.einsum("bij,bkjl->bkil", cur_data["cam_T_world"].float(),
-                                     src_data["world_T_cam"].float())
+            with no_autocast:
+                src_T_cur = torch.einsum("bkij,bjl->bkil", src_data["cam_T_world"].float(),
+                                         cur_data["world_T_cam"].float())
+                cur_T_src = torch.einsum("bij,bkjl->bkil", cur_data["cam_T_world"].float(),
+                                         src_data["world_T_cam"].float())
 
-        enc_feats = self.encoder(cur_image.to(cdt))
-        if stop_at == "encoder":
-            return {"features": list(enc_feats)}
+            enc_feats = self.encoder(cur_image.to(cdt))
+            if stop_at == "encoder":
+                return {"features": list(enc_feats)}
 
-        all_images = torch.cat([cur_image[:, None], src_image], dim=1)
-        mfeats = self.matching(all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
-        mfeats = mfeats.permute(0, 2, 3, 1)                            # NHWC
-        mfeats = mfeats.reshape((b, k + 1) + mfeats.shape[1:])
-        if flip:
-            mfeats = mfeats.flip(3)
-        m_cur, m_src = mfeats[:, 0], mfeats[:, 1:]
-        if stop_at == "matching":
-            return {"features": [m_cur, m_src] + list(enc_feats)}
+        with span("idt.trunk.matching"):
+            all_images = torch.cat([cur_image[:, None], src_image], dim=1)
+            mfeats = self.matching(
+                all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
+            mfeats = mfeats.permute(0, 2, 3, 1)                        # NHWC
+            mfeats = mfeats.reshape((b, k + 1) + mfeats.shape[1:])
+            if flip:
+                mfeats = mfeats.flip(3)
+            m_cur, m_src = mfeats[:, 0], mfeats[:, 1:]
+            if stop_at == "matching":
+                return {"features": [m_cur, m_src] + list(enc_feats)}
 
-        planes = geometry.log_depth_planes(self.min_matching_depth, self.max_matching_depth,
-                                           self.num_depth_bins, device=m_cur.device)
-        s = self.matching_scale
-        geo = (src_data[f"K_s{s}"].float(), src_T_cur, cur_data[f"invK_s{s}"].float(), cur_T_src,
-               planes)
-        with no_autocast:                                              # (b, d, h, w) volume
-            if self.feature_volume_type == "zero_cost_volume":
-                volume = cv.zero_cost_volume(b, self.num_depth_bins, m_cur.shape[1],
-                                             m_cur.shape[2], m_cur.dtype, m_cur.device)
-            elif self.feature_volume_type == "simple_cost_volume":
-                volume = cv.dot_cost_volume(cv.build_warped_views(m_cur, m_src, *geo,
-                                                                  compute_dtype=cdt))
-            else:
-                volume_fn = self.volume_mlp.fused_train if train else self.volume_mlp.fused
-                volume = volume_fn(m_cur, m_src, *geo)                 # f32
-            lowest = cv.lowest_cost_depth(volume.detach(), planes)
-        if stop_at == "volume" and self.feature_volume_type != "zero_cost_volume":
-            return {"features": [volume] + list(enc_feats)}
-        if flip:
-            volume = volume.flip(3)
+        with span("idt.trunk.volume"):
+            planes = geometry.log_depth_planes(self.min_matching_depth, self.max_matching_depth,
+                                               self.num_depth_bins, device=m_cur.device)
+            s = self.matching_scale
+            geo = (src_data[f"K_s{s}"].float(), src_T_cur, cur_data[f"invK_s{s}"].float(),
+                   cur_T_src, planes)
+            with no_autocast:                                          # (b, d, h, w) volume
+                if self.feature_volume_type == "zero_cost_volume":
+                    volume = cv.zero_cost_volume(b, self.num_depth_bins, m_cur.shape[1],
+                                                 m_cur.shape[2], m_cur.dtype, m_cur.device)
+                elif self.feature_volume_type == "simple_cost_volume":
+                    volume = cv.dot_cost_volume(cv.build_warped_views(m_cur, m_src, *geo,
+                                                                      compute_dtype=cdt))
+                else:
+                    volume_fn = self.volume_mlp.fused_train if train else self.volume_mlp.fused
+                    volume = volume_fn(m_cur, m_src, *geo)             # f32
+                lowest = cv.lowest_cost_depth(volume.detach(), planes)
+            if stop_at == "volume" and self.feature_volume_type != "zero_cost_volume":
+                return {"features": [volume] + list(enc_feats)}
 
-        cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
-        if stop_at == "cv_encoder":
-            return {"features": cv_feats}
-        dec = self.decoder(list(enc_feats[:s]) + cv_feats)
-        if flip:
-            dec = {i: f.flip(3) for i, f in dec.items()}
+        with span("idt.trunk.cv_encoder"):
+            if flip:
+                volume = volume.flip(3)
+            cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
+            if stop_at == "cv_encoder":
+                return {"features": cv_feats}
+
+        with span("idt.trunk.decoder"):
+            dec = self.decoder(list(enc_feats[:s]) + cv_feats)
+            if flip:
+                dec = {i: f.flip(3) for i, f in dec.items()}
         return {"features": dec, "lowest_cost": lowest, "depth_planes": planes}
 
     # ---------------- query heads ----------------
@@ -223,27 +234,28 @@ class BDNet(nn.Module):
         query_depth (b, N, S), pred_s (b, N_s, S)."""
         if self.use_prior and prior_noise is None:
             raise ValueError("a net with use_prior trains on prior_noise (draw_prior_noise)")
-        gt_depth = cur_data["gt_depth"]
-        hg, wg = gt_depth.shape[1], gt_depth.shape[2]
-        rays = cur_data["sampled_rays"]
-        depths = cur_data["sampled_depths"]
-        grid = torch.stack([(rays[..., 0] / wg - 0.5) * 2.0,
-                            (rays[..., 1] / hg - 0.5) * 2.0], dim=-1)  # (b, N, 2)
-        target = grid_sample(gt_depth, grid[:, :, None], mode="bilinear")[:, :, 0, 0]
-        feats, sub_depths, priors = [], [], []
-        for scale in SCALES:
-            feat = features[scale].permute(0, 2, 3, 1)              # NHWC
-            sub_grid = grid[:, :: scale + 1]
-            feats.append(grid_sample(feat, sub_grid[:, :, None], mode="bilinear")[:, :, 0])
-            sub_depths.append(depths[:, :: scale + 1])
-            if self.use_prior:
-                u_offset, u_flip = (u.to(feats[-1].dtype) for u in prior_noise[scale])
-                priors.append(augment_prior(sub_depths[-1], target[:, :: scale + 1],
-                                            u_offset, u_flip))
-        out = {"target_depth": target, "query_depth": depths}
-        out.update(self.binary_mlp.factored(feats, sub_depths,
-                                            priors if self.use_prior else None))
-        return out
+        with span("idt.heads"):
+            gt_depth = cur_data["gt_depth"]
+            hg, wg = gt_depth.shape[1], gt_depth.shape[2]
+            rays = cur_data["sampled_rays"]
+            depths = cur_data["sampled_depths"]
+            grid = torch.stack([(rays[..., 0] / wg - 0.5) * 2.0,
+                                (rays[..., 1] / hg - 0.5) * 2.0], dim=-1)  # (b, N, 2)
+            target = grid_sample(gt_depth, grid[:, :, None], mode="bilinear")[:, :, 0, 0]
+            feats, sub_depths, priors = [], [], []
+            for scale in SCALES:
+                feat = features[scale].permute(0, 2, 3, 1)          # NHWC
+                sub_grid = grid[:, :: scale + 1]
+                feats.append(grid_sample(feat, sub_grid[:, :, None], mode="bilinear")[:, :, 0])
+                sub_depths.append(depths[:, :: scale + 1])
+                if self.use_prior:
+                    u_offset, u_flip = (u.to(feats[-1].dtype) for u in prior_noise[scale])
+                    priors.append(augment_prior(sub_depths[-1], target[:, :: scale + 1],
+                                                u_offset, u_flip))
+            out = {"target_depth": target, "query_depth": depths}
+            out.update(self.binary_mlp.factored(feats, sub_depths,
+                                                priors if self.use_prior else None))
+            return out
 
     def sample_prior(self, rendered_depth: Tensor, prior_prediction: Tensor,
                      cam_to_world: Tensor, prior_world_to_cam: Tensor, K: Tensor,
@@ -290,10 +302,11 @@ class BDNet(nn.Module):
         """Train forward: trunk with the differentiable volume + sparse ray
         queries (with use_prior, on the draws prior_noise). Returns
         target_depth, query_depth, pred_0..3, lowest_cost."""
-        t = self.trunk(cur_data, src_data, flip, train=True)
-        out = self.run_mlp_train(cur_data, t["features"], prior_noise)
-        out["lowest_cost"] = t["lowest_cost"]
-        return out
+        with span("idt.forward"):
+            t = self.trunk(cur_data, src_data, flip, train=True)
+            out = self.run_mlp_train(cur_data, t["features"], prior_noise)
+            out["lowest_cost"] = t["lowest_cost"]
+            return out
 
     def forward_val(self, cur_data: dict, src_data: dict) -> dict:
         """Dense queries for every rendered-depth channel:
@@ -301,14 +314,17 @@ class BDNet(nn.Module):
         use_prior, cur_data may hold prior_prediction (b, h0, w0, 1) and
         prior_cam_T_world (b, 4, 4); each channel warps the prior through
         its own rendered depth."""
-        t = self.trunk(cur_data, src_data)
-        rendered = cur_data["rendered_depth"]
-        logits = []
-        for i in range(rendered.shape[-1]):
-            q = rendered[..., i: i + 1]
-            logits.append(self.run_mlp_val(dict(cur_data, rendered_depth_full=q),
-                                           t["features"], q))
-        return {"pred_0": torch.stack(logits, dim=-1), "lowest_cost": t["lowest_cost"]}
+        with span("idt.forward_val"):
+            t = self.trunk(cur_data, src_data)
+            rendered = cur_data["rendered_depth"]
+            logits = []
+            with span("idt.heads"):
+                for i in range(rendered.shape[-1]):
+                    q = rendered[..., i: i + 1]
+                    logits.append(self.run_mlp_val(dict(cur_data, rendered_depth_full=q),
+                                                   t["features"], q))
+                pred = torch.stack(logits, dim=-1)
+            return {"pred_0": pred, "lowest_cost": t["lowest_cost"]}
 
     def forward_infer_depth(self, cur_data: dict, src_data: dict,
                             threshold_bins: Optional[Tensor] = None,

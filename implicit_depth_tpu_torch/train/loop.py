@@ -61,6 +61,7 @@ from implicit_depth_tpu_torch.train import checkpoint as ckpt_lib
 from implicit_depth_tpu_torch.train import losses as loss_lib
 from implicit_depth_tpu_torch.train import state as state_lib
 from implicit_depth_tpu_torch.train.logging import ExperimentLogger, copy_code_state
+from implicit_depth_tpu_torch.utils.profiling import span
 from implicit_depth_tpu_torch.weights import init_params, lazy_load_state_dict, load_state_dict
 
 KINDS = ("bd", "regression")
@@ -160,8 +161,9 @@ class EpochSeededLoader(BatchLoader):
 
 def batch_to_device(batch, device: torch.device) -> tuple[dict, dict]:
     """A collated numpy (cur, src) batch as tensors on `device`."""
-    return tuple({k: torch.as_tensor(v).to(device) for k, v in d.items()
-                  if k != "frame_id_string"} for d in batch)
+    with span("idt.upload"):
+        return tuple({k: torch.as_tensor(v).to(device) for k, v in d.items()
+                      if k != "frame_id_string"} for d in batch)
 
 
 def _bd_val_metrics(net: BDNet, cfg: Config, cur: dict, src: dict) -> tuple:

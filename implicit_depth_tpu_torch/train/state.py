@@ -46,6 +46,7 @@ from implicit_depth_tpu_torch.models.bd_net import draw_prior_noise
 from implicit_depth_tpu_torch.ops import image as image_ops
 from implicit_depth_tpu_torch.parallel import distributed
 from implicit_depth_tpu_torch.train import losses as loss_lib
+from implicit_depth_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -106,11 +107,20 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
     step. Train-mode batch norm moves its running statistics during the
     forward; they are put back, so that the net, the optimizer and the
     scheduler are left bit-equal, as the JAX probe returns its input state.
-    For the same generator state it returns the full step's losses."""
+    For the same generator state it returns the full step's losses.
+
+    The step runs in the span idt.step (utils/profiling.py::SPANS), its
+    loss in idt.step.loss, the backward in idt.step.backward and the
+    optimizer's work in idt.step.optimizer: twice a step, since zero_grad
+    comes before the backward."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     prior_gens: dict = {}  # device -> the prior's generator there
 
     def step(batch, flip: Optional[bool] = None, prior_noise: Optional[list] = None) -> dict:
+        with span("idt.step"):
+            return _step(batch, flip, prior_noise)
+
+    def _step(batch, flip: Optional[bool], prior_noise: Optional[list]) -> dict:
         cur_data, src_data = batch
         if flip is None:
             flip = _draw_flip(gen, train_flip)
@@ -137,21 +147,26 @@ def make_bd_train_step(net, optimizer, scheduler=None, *, pos_weight: float = 1.
             with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
                 out = net(cur_data, src_data, flip=flip, prior_noise=prior_noise)
             preds = {k: v for k, v in out.items() if k.startswith("pred_")}
-            losses = loss_lib.binary_losses(
-                out["query_depth"], out["target_depth"][..., None], preds, pos_weight=pos_weight,
-                regularisation_weight=regularisation_weight, edge_mask=edge)
+            with span("idt.step.loss"):
+                losses = loss_lib.binary_losses(
+                    out["query_depth"], out["target_depth"][..., None], preds,
+                    pos_weight=pos_weight, regularisation_weight=regularisation_weight,
+                    edge_mask=edge)
         if forward_only:
             with torch.no_grad():
                 for name, b in net.named_buffers():
                     b.copy_(buffers[name])
             return {k: v.detach() for k, v in losses.items()}
-        optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
-        fill_missing_grads(net.parameters())
-        distributed.average_gradients(net.parameters())
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span("idt.step.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("idt.step.backward"):
+            losses["loss"].backward()
+        with span("idt.step.optimizer"):
+            fill_missing_grads(net.parameters())
+            distributed.average_gradients(net.parameters())
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
         return {k: v.detach() for k, v in losses.items()}
 
     return step

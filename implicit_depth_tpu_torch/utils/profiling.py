@@ -12,6 +12,12 @@ implicit_depth_tpu/utils/profiling.py.
   moves (FLOPs and bytes of the aten operations it dispatches).
 - card_name_and_limit: the card's name and power limit as nvidia-smi
   prints them, to stand beside every number a tool prints.
+- span: a named stage of the program (SPANS) as a
+  torch.profiler.record_function range while a profiler records, so that
+  the stage lands in the same trace, on the same clock, as the device's
+  kernels, copies and launch calls (`trace` above, or the benchmark's);
+  without a profiler it costs one check. To see the stages, run a loop
+  inside `trace(dir)` and open dir/trace.json in Perfetto.
 """
 
 from __future__ import annotations
@@ -84,6 +90,36 @@ class StepTimer:
 
 
 TRACE_FILE = "trace.json"
+
+# The program's stage spans, by name: the contract that trace readers (the
+# benchmark's port_bench/spans.py) match, as kernel names are for kernels.
+SPANS = {
+    "idt.upload": "train/loop.py::batch_to_device, the host-to-device upload of a batch",
+    "idt.forward_val": "BDNet.forward_val: the trunk and the query-plane head passes",
+    "idt.forward": "BDNet.forward, the training forward",
+    "idt.trunk.encoder": "BDNet.trunk: the pose products and the image encoder",
+    "idt.trunk.matching": "BDNet.trunk: the matching encoder on every view",
+    "idt.trunk.volume": "BDNet.trunk: the cost volume (#1) and its lowest-cost depth",
+    "idt.trunk.cv_encoder": "BDNet.trunk: the volume's flip back and the CV encoder",
+    "idt.trunk.decoder": "BDNet.trunk: the decoder and the features' flip back",
+    "idt.heads": "the query heads: forward_val's scale-0 passes, run_mlp_train (#3)",
+    "idt.step": "make_bd_train_step's step after the upload: edge mask to scheduler",
+    "idt.step.loss": "the step's binary_losses",
+    "idt.step.backward": "the step's loss.backward()",
+    "idt.step.optimizer": "zero_grad, the gradients' fill and average, AdamW and scheduler",
+}
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The stage `name` (one of SPANS) as a `with` context: a
+    torch.profiler.record_function range while a profiler records, else
+    one shared null context. The check comes first: record_function
+    outside a profiler costs ~12 us an entry on the CPU, the check ~1 us."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
