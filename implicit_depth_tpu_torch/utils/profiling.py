@@ -18,6 +18,7 @@ implicit_depth_tpu/utils/profiling.py.
   kernels, copies and launch calls (`trace` above, or the benchmark's);
   without a profiler it costs one check. To see the stages, run a loop
   inside `trace(dir)` and open dir/trace.json in Perfetto.
+- UPLOAD_BYTES: the bytes the batch upload has moved, by the path it took.
 """
 
 from __future__ import annotations
@@ -108,6 +109,12 @@ SPANS = {
     "idt.step.backward": "the step's loss.backward()",
     "idt.step.optimizer": "zero_grad, the gradients' fill and average, AdamW and scheduler",
 }
+
+# Bytes that train/loop.py::batch_to_device has uploaded, by path: "pinned"
+# (staged through pinned host memory, copied asynchronously: on CUDA) and
+# "pageable" (the plain copy: any other device). The pinned share of the
+# whole says how often the staged path engages.
+UPLOAD_BYTES = {"pinned": 0, "pageable": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 
