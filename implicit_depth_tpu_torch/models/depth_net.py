@@ -42,6 +42,7 @@ from implicit_depth_tpu_torch.models.image_encoders import EfficientNetV2S, ResN
 from implicit_depth_tpu_torch.models.matching import ResnetMatchingEncoder
 from implicit_depth_tpu_torch.models.resnets import ResNeXt101_64x4d, SEResNeXtAA101d_32x8d
 from implicit_depth_tpu_torch.models.volume_mlp import MetadataVolumeMLP
+from implicit_depth_tpu_torch.utils.profiling import span
 from implicit_depth_tpu_torch.volumes import cost_volume as cv
 
 Tensor = torch.Tensor
@@ -130,61 +131,77 @@ class DepthNet(nn.Module):
 
     def forward(self, cur_data: dict, src_data: dict, flip: bool = False) -> dict:
         """{"lowest_cost": (b, h, w), "log_depth_pred_s" and "depth_pred_s":
-        (b, h_s, w_s, 1) f32 for s = 0..3}."""
+        (b, h_s, w_s, 1) f32 for s = 0..3}.
+
+        Runs in the span idt.forward, each stage in its trunk span as
+        BDNet.trunk's (utils/profiling.py::SPANS), and the warp (#5) in
+        idt.trunk.warp inside idt.trunk.volume."""
+        with span("idt.forward"):
+            return self._forward(cur_data, src_data, flip)
+
+    def _forward(self, cur_data: dict, src_data: dict, flip: bool) -> dict:
         cdt = self.compute_dtype
-        cur_image = cur_data["image"].permute(0, 3, 1, 2)             # (b, 3, h, w)
-        src_image = src_data["image"].permute(0, 1, 4, 2, 3)          # (b, k, 3, h, w)
-        if flip:
-            cur_image, src_image = cur_image.flip(3), src_image.flip(4)
-        b, k = src_image.shape[:2]
-        no_autocast = torch.autocast(cur_image.device.type, enabled=False)
-
-        with no_autocast:
-            src_T_cur = torch.einsum("bkij,bjl->bkil", src_data["cam_T_world"].float(),
-                                     cur_data["world_T_cam"].float())
-            cur_T_src = torch.einsum("bij,bkjl->bkil", cur_data["cam_T_world"].float(),
-                                     src_data["world_T_cam"].float())
-
-        enc_feats = self.encoder(cur_image.to(cdt))
-
-        all_images = torch.cat([cur_image[:, None], src_image], dim=1)
-        mfeats = self.matching(all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
-        mfeats = mfeats.permute(0, 2, 3, 1)                            # NHWC
-        mfeats = mfeats.reshape((b, k + 1) + mfeats.shape[1:])
-        if flip:
-            mfeats = mfeats.flip(3)
-        m_cur, m_src = mfeats[:, 0], mfeats[:, 1:]
-
-        planes = geometry.log_depth_planes(self.min_matching_depth, self.max_matching_depth,
-                                           self.num_depth_bins, device=m_cur.device)
-        s = self.matching_scale
-        with no_autocast:
-            if self.feature_volume_type == "zero_cost_volume":
-                h, w = m_cur.shape[1], m_cur.shape[2]
-                volume = cv.zero_cost_volume(b, self.num_depth_bins, h, w, m_cur.dtype,
-                                             m_cur.device)
-            else:
-                wv = cv.build_warped_views(
-                    m_cur, m_src, src_data[f"K_s{s}"].float(), src_T_cur,
-                    cur_data[f"invK_s{s}"].float(), cur_T_src, planes, compute_dtype=cdt)
-                if self.feature_volume_type == "mlp_feature_volume":
-                    volume = self.volume_mlp(wv, m_cur)
-                else:
-                    volume = cv.dot_cost_volume(wv)
-            lowest = cv.lowest_cost_depth(volume.detach(), planes)     # (b, d, h, w) volume
-        if flip:
-            volume = volume.flip(3)
-
-        cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
-        dec = self.decoder(list(enc_feats[:s]) + cv_feats)
-
-        outputs: dict = {"lowest_cost": lowest}
-        for scale in SCALES:
-            log_depth = dec[scale] if self.depth_decoder_name == "unet_pp" else \
-                dec[f"log_depth_{scale}"]
-            log_depth = log_depth.float().permute(0, 2, 3, 1)         # (b, h_s, w_s, 1)
+        with span("idt.trunk.encoder"):
+            cur_image = cur_data["image"].permute(0, 3, 1, 2)         # (b, 3, h, w)
+            src_image = src_data["image"].permute(0, 1, 4, 2, 3)      # (b, k, 3, h, w)
             if flip:
-                log_depth = log_depth.flip(2)
-            outputs[f"log_depth_pred_{scale}"] = log_depth
-            outputs[f"depth_pred_{scale}"] = torch.exp(log_depth)
-        return outputs
+                cur_image, src_image = cur_image.flip(3), src_image.flip(4)
+            b, k = src_image.shape[:2]
+            no_autocast = torch.autocast(cur_image.device.type, enabled=False)
+
+            with no_autocast:
+                src_T_cur = torch.einsum("bkij,bjl->bkil", src_data["cam_T_world"].float(),
+                                         cur_data["world_T_cam"].float())
+                cur_T_src = torch.einsum("bij,bkjl->bkil", cur_data["cam_T_world"].float(),
+                                         src_data["world_T_cam"].float())
+
+            enc_feats = self.encoder(cur_image.to(cdt))
+
+        with span("idt.trunk.matching"):
+            all_images = torch.cat([cur_image[:, None], src_image], dim=1)
+            mfeats = self.matching(
+                all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
+            mfeats = mfeats.permute(0, 2, 3, 1)                        # NHWC
+            mfeats = mfeats.reshape((b, k + 1) + mfeats.shape[1:])
+            if flip:
+                mfeats = mfeats.flip(3)
+            m_cur, m_src = mfeats[:, 0], mfeats[:, 1:]
+
+        with span("idt.trunk.volume"):
+            planes = geometry.log_depth_planes(self.min_matching_depth, self.max_matching_depth,
+                                               self.num_depth_bins, device=m_cur.device)
+            s = self.matching_scale
+            with no_autocast:
+                if self.feature_volume_type == "zero_cost_volume":
+                    h, w = m_cur.shape[1], m_cur.shape[2]
+                    volume = cv.zero_cost_volume(b, self.num_depth_bins, h, w, m_cur.dtype,
+                                                 m_cur.device)
+                else:
+                    with span("idt.trunk.warp"):
+                        wv = cv.build_warped_views(
+                            m_cur, m_src, src_data[f"K_s{s}"].float(), src_T_cur,
+                            cur_data[f"invK_s{s}"].float(), cur_T_src, planes,
+                            compute_dtype=cdt)
+                    if self.feature_volume_type == "mlp_feature_volume":
+                        volume = self.volume_mlp(wv, m_cur)
+                    else:
+                        volume = cv.dot_cost_volume(wv)
+                lowest = cv.lowest_cost_depth(volume.detach(), planes)  # (b, d, h, w) volume
+
+        with span("idt.trunk.cv_encoder"):
+            if flip:
+                volume = volume.flip(3)
+            cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
+
+        with span("idt.trunk.decoder"):
+            dec = self.decoder(list(enc_feats[:s]) + cv_feats)
+            outputs: dict = {"lowest_cost": lowest}
+            for scale in SCALES:
+                log_depth = dec[scale] if self.depth_decoder_name == "unet_pp" else \
+                    dec[f"log_depth_{scale}"]
+                log_depth = log_depth.float().permute(0, 2, 3, 1)     # (b, h_s, w_s, 1)
+                if flip:
+                    log_depth = log_depth.flip(2)
+                outputs[f"log_depth_pred_{scale}"] = log_depth
+                outputs[f"depth_pred_{scale}"] = torch.exp(log_depth)
+            return outputs

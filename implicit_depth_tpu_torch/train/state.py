@@ -178,10 +178,18 @@ def make_regression_train_step(net, optimizer, scheduler=None, *, dataset: str =
     """Returns step(batch, flip=None) -> losses (detached tensors) for a
     DepthNet. batch = (cur_data, src_data) tensors on the net's device,
     cur_data with depth (NaN invalid), mask and invK_s0; flip None draws
-    from `generator` (Bernoulli(0.5)) when train_flip is set, else no flip."""
+    from `generator` (Bernoulli(0.5)) when train_flip is set, else no flip.
+
+    The step runs in the spans of make_bd_train_step's: idt.step, the
+    predicted normals and the losses in idt.step.loss, idt.step.backward
+    and idt.step.optimizer (utils/profiling.py::SPANS)."""
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
 
     def step(batch, flip: Optional[bool] = None) -> dict:
+        with span("idt.step"):
+            return _step(batch, flip)
+
+    def _step(batch, flip: Optional[bool]) -> dict:
         cur_data, src_data = batch
         if flip is None:
             flip = _draw_flip(gen, train_flip)
@@ -195,16 +203,20 @@ def make_regression_train_step(net, optimizer, scheduler=None, *, dataset: str =
         dev = cur_data["image"].device.type
         with torch.autocast(dev, dtype=cdt, enabled=cdt != torch.float32):
             out = dict(net(cur_data, src_data, flip=flip))
-        out["normals_pred"] = image_ops.normals_from_depth(out["depth_pred_0"],
-                                                           cur_data["invK_s0"].float())
-        losses = loss_lib.regression_losses(cur_data, src_data, out, dataset=dataset)
-        optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
-        fill_missing_grads(net.parameters())
-        distributed.average_gradients(net.parameters())
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span("idt.step.loss"):
+            out["normals_pred"] = image_ops.normals_from_depth(out["depth_pred_0"],
+                                                               cur_data["invK_s0"].float())
+            losses = loss_lib.regression_losses(cur_data, src_data, out, dataset=dataset)
+        with span("idt.step.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("idt.step.backward"):
+            losses["loss"].backward()
+        with span("idt.step.optimizer"):
+            fill_missing_grads(net.parameters())
+            distributed.average_gradients(net.parameters())
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
         return {k: v.detach() for k, v in losses.items()}
 
     return step

@@ -97,15 +97,20 @@ TRACE_FILE = "trace.json"
 SPANS = {
     "idt.upload": "train/loop.py::batch_to_device, the host-to-device upload of a batch",
     "idt.forward_val": "BDNet.forward_val: the trunk and the query-plane head passes",
-    "idt.forward": "BDNet.forward, the training forward",
-    "idt.trunk.encoder": "BDNet.trunk: the pose products and the image encoder",
-    "idt.trunk.matching": "BDNet.trunk: the matching encoder on every view",
-    "idt.trunk.volume": "BDNet.trunk: the cost volume (#1) and its lowest-cost depth",
-    "idt.trunk.cv_encoder": "BDNet.trunk: the volume's flip back and the CV encoder",
-    "idt.trunk.decoder": "BDNet.trunk: the decoder and the features' flip back",
+    "idt.forward": "the training forward: BDNet.forward; DepthNet.forward (train and eval)",
+    "idt.trunk.encoder": "BDNet.trunk, DepthNet.forward: the pose products and the image encoder",
+    "idt.trunk.matching": "BDNet.trunk, DepthNet.forward: the matching encoder on every view",
+    "idt.trunk.volume": "the cost volume and its lowest-cost depth: BDNet.trunk's (#1), "
+                        "DepthNet.forward's (idt.trunk.warp, then the unfused metadata MLP)",
+    "idt.trunk.warp": "DepthNet.forward inside idt.trunk.volume: build_warped_views (#5)",
+    "idt.trunk.cv_encoder": "BDNet.trunk, DepthNet.forward: the volume's flip back, the CV encoder",
+    "idt.trunk.decoder": "BDNet.trunk: the decoder and the features' flip back; DepthNet.forward: "
+                         "the decoder and the log-depth heads' cast, flip back and exp",
     "idt.heads": "the query heads: forward_val's scale-0 passes, run_mlp_train (#3)",
-    "idt.step": "make_bd_train_step's step after the upload: edge mask to scheduler",
-    "idt.step.loss": "the step's binary_losses",
+    "idt.step": "the train step after the upload: make_bd_train_step's (edge mask to "
+                "scheduler), make_regression_train_step's (GT normals to scheduler)",
+    "idt.step.loss": "the BD step's binary_losses; the regression step's predicted normals "
+                     "and regression_losses",
     "idt.step.backward": "the step's loss.backward()",
     "idt.step.optimizer": "zero_grad, the gradients' fill and average, AdamW and scheduler",
 }
