@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from implicit_depth_tpu_torch.models.blocks import instance_norm
 from implicit_depth_tpu_torch.parallel import distributed
+from implicit_depth_tpu_torch.utils.profiling import BN_EVAL_AFFINE
 
 Tensor = torch.Tensor
 
@@ -33,7 +34,14 @@ class BatchNorm(nn.Module):
     sharded over processes: each rank's count, mean and sum of squared
     deviations are exchanged with one differentiable all-reduce and
     combined (Chan et al.'s pairwise update), so no E[x^2] - E[x]^2
-    cancellation enters."""
+    cancellation enters.
+
+    Eval with grad disabled takes the per-channel scale and shift from a
+    one-entry cache (`_eval_affine`, a plain attribute: no state_dict
+    entry), the same tensors the uncached path computes, rebuilt whenever
+    the parameters, the buffers, eps or the input dtype change; so a warm
+    call dispatches only the two operations on the activation.
+    BN_EVAL_AFFINE (utils/profiling.py) counts its hits and misses."""
 
     MOMENTUM = 0.9
 
@@ -44,6 +52,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self._eval_affine = None  # (key, the keyed tensors, scale, shift)
 
     def forward(self, x: Tensor) -> Tensor:
         if self.training:
@@ -58,9 +67,37 @@ class BatchNorm(nn.Module):
             scale = self.weight.float() * torch.rsqrt(var + self.eps)
             y = (x32 - mean[:, None, None]) * scale[:, None, None] + self.bias.float()[:, None, None]
             return y.to(x.dtype)
+        if torch.is_grad_enabled():
+            scale, shift = self._affine(x.dtype)
+        else:
+            scale, shift = self._cached_affine(x.dtype)
+        return x * scale[:, None, None] + shift[:, None, None]
+
+    def _affine(self, dtype: torch.dtype) -> tuple:
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         shift = self.bias.float() - self.running_mean.float() * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        return scale.to(dtype), shift.to(dtype)
+
+    def _cached_affine(self, dtype: torch.dtype) -> tuple:
+        """`_affine(dtype)`, from the cache while its key holds. The key is
+        each keyed tensor's storage address, dtype and version counter, eps
+        and `dtype`: an optimizer step, load_state_dict and a train-mode
+        forward write in place (the version moves); `.to()` and assigned
+        parameters bring new storage. The entry keeps the keyed tensors
+        alive, so no new tensor can take a keyed address while it stands.
+        Inference tensors have no version counter: no cache for them."""
+        tensors = (self.weight, self.bias, self.running_mean, self.running_var)
+        if any(t.is_inference() for t in tensors):
+            return self._affine(dtype)
+        key = (self.eps, dtype) + tuple((t.data_ptr(), t.dtype, t._version) for t in tensors)
+        entry = self._eval_affine
+        if entry is not None and entry[0] == key:
+            BN_EVAL_AFFINE["hits"] += 1
+            return entry[2], entry[3]
+        BN_EVAL_AFFINE["misses"] += 1
+        scale, shift = self._affine(dtype)
+        self._eval_affine = (key, tuple(t.detach() for t in tensors), scale, shift)
+        return scale, shift
 
 
 def _global_moments(mean: Tensor, var: Tensor, n: int) -> tuple:

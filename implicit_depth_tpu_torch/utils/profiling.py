@@ -19,6 +19,8 @@ implicit_depth_tpu/utils/profiling.py.
   without a profiler it costs one check. To see the stages, run a loop
   inside `trace(dir)` and open dir/trace.json in Perfetto.
 - UPLOAD_BYTES: the bytes the batch upload has moved, by the path it took.
+- BN_EVAL_AFFINE: the eval batch norms' cached scale and shift, by hits
+  and rebuilds.
 """
 
 from __future__ import annotations
@@ -120,6 +122,13 @@ SPANS = {
 # "pageable" (the plain copy: any other device). The pinned share of the
 # whole says how often the staged path engages.
 UPLOAD_BYTES = {"pinned": 0, "pageable": 0}
+
+# Calls of models/matching.py::BatchNorm in eval mode with grad disabled,
+# by whether the per-channel scale and shift came from its cache ("hits")
+# or were rebuilt ("misses"). In a steady loop of frames every call is a
+# hit; each miss after the first frame is a weights version or an input
+# dtype the cache had not seen. Calls with grad enabled count neither.
+BN_EVAL_AFFINE = {"hits": 0, "misses": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

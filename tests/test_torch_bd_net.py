@@ -20,6 +20,7 @@ import torch
 from implicit_depth_tpu.models.bd_net import BDNet as JBDNet
 from implicit_depth_tpu.utils.fixtures import synthetic_bd_batch
 from implicit_depth_tpu_torch.models.bd_net import TRAIN_ONLY_PREFIXES, BDNet
+from implicit_depth_tpu_torch.models.matching import BatchNorm
 from implicit_depth_tpu_torch.weights import load_state_dict, state_dict_from_flax
 from tests.torch_parity import assert_close, seeded_variables, to_numpy_tree
 
@@ -106,3 +107,29 @@ def test_bridge_loads_train_initialised_tree(batch):
     np.testing.assert_array_equal(
         net.binary_mlp.s3_fc0.weight.detach().numpy(),
         np.asarray(variables["params"]["binary_mlp"]["s3_fc0"]["kernel"]).T)
+
+
+def test_warm_forward_val_equals_the_grad_enabled_eval(batch):
+    """Eval batch norm's cached scale and shift (models/matching.py::BatchNorm):
+    a warm bf16 forward_val under inference_mode gives the grad-enabled eval
+    answer, which computes them on every call, bit for bit."""
+    cur, src = (_torch_batch(d) for d in batch)
+    with torch.random.fork_rng():
+        torch.manual_seed(5)
+        net = BDNet(num_src_views=K, num_depth_bins=D_BINS, image_encoder_name="tiny",
+                    compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm):
+                for t in (m.weight, m.bias, m.running_mean):
+                    t.copy_(torch.randn(t.shape, generator=g) * 0.2 + (t is m.weight))
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    net.eval().cast_to_compute_dtype()
+    with torch.enable_grad():
+        ref = net.forward_val(cur, src)
+    with torch.inference_mode():
+        net.forward_val(cur, src)
+        warm = net.forward_val(cur, src)
+    for key in ("pred_0", "lowest_cost"):
+        assert torch.equal(warm[key], ref[key].detach())
