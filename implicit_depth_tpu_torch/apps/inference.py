@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from implicit_depth_tpu_torch.data.mvs_dataset import collate
+from implicit_depth_tpu_torch.eval.occlusion_eval import make_forward_fn
 from implicit_depth_tpu_torch.ops.image import max_pool_dilate
+from implicit_depth_tpu_torch.utils.device import batch_to_device
 
 
 def load_rendered_depth(load_dir: Optional[str], frame_id: str, h: int, w: int) -> np.ndarray:
@@ -55,6 +57,7 @@ def run_inference(
     os.makedirs(output_dir, exist_ok=True)
     device = next(net.parameters()).device
     net.eval()
+    fwd = make_forward_fn(net, sigmoid_multiplier=sigmoid_multiplier)
     saved = []
     prior_pred = None
     prior_pose = None
@@ -65,18 +68,14 @@ def run_inference(
             cur, src = collate([dataset[i]])
             frame_id = cur.get("frame_id_string", [str(i)])[0]
             h, w = cur["depth"].shape[1:3]
-            rendered = load_rendered_depth(rendered_depth_load_dir, frame_id, h, w)
-            cur = {k: torch.as_tensor(v).to(device) for k, v in cur.items()
-                   if k != "frame_id_string"}
-            src = {k: torch.as_tensor(v).to(device) for k, v in src.items()
-                   if k != "frame_id_string"}
-            cur["rendered_depth"] = torch.from_numpy(rendered)[None].to(device)
+            cur["rendered_depth"] = load_rendered_depth(rendered_depth_load_dir, frame_id,
+                                                        h, w)[None]
+            cur, src = batch_to_device((cur, src), device)
             if use_prior:
                 cur["prior_prediction"] = prior_pred
                 cur["prior_cam_T_world"] = prior_pose
 
-            out = net.forward_val(cur, src)
-            pred = torch.sigmoid(sigmoid_multiplier * out["pred_0"].float())  # (1, h, w, 1)
+            pred = fwd(cur, src)  # (1, h, w, 1)
             matte = pred[0, ..., 0].cpu().numpy()
             # zero-padded like the reference (inference/inference.py:162
             # saves f"{frame_idx:05d}.npy") so composite_capture's padded

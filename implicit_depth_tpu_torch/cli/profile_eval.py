@@ -32,6 +32,7 @@ from torch.utils._pytree import tree_leaves
 
 from implicit_depth_tpu_torch.models.bd_net import BDNet
 from implicit_depth_tpu_torch.ops.bounds import launch_counts, reset_launch_counts
+from implicit_depth_tpu_torch.utils.device import batch_to_device
 from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
 from implicit_depth_tpu_torch.utils.profiling import card_name_and_limit, force_sync
 from implicit_depth_tpu_torch.weights import init_params
@@ -55,8 +56,8 @@ def synthetic_batch(batch: int, device, with_train_keys: bool, **shape) -> tuple
     unless `shape` says otherwise), repeated to `batch`, as tensors on
     `device`."""
     dicts = synthetic_bd_batch(batch=1, with_train_keys=with_train_keys, **shape)
-    return tuple({k: torch.as_tensor(np.repeat(v, batch, 0)).to(device) for k, v in d.items()}
-                 for d in dicts)
+    return batch_to_device(tuple({k: np.repeat(v, batch, 0) for k, v in d.items()}
+                                 for d in dicts), torch.device(device))
 
 
 def _scalar(out) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Dense occlusion (binary-depth) evaluation loop, counterpart of
 implicit_depth_tpu/eval/occlusion_eval.py.
 
-The host loop feeds batches from the port's numpy BatchLoader, runs the
-forward, scores on the device and averages per scene. Two modes, as the
-JAX package's:
+The host loop (depth_eval.timed_batches) feeds batches from the port's
+numpy BatchLoader and runs the forward; this module scores on the device
+and averages per scene. Two modes, as the JAX package's:
 - occlusion IoU: `BDNet.forward_val` at the rendered query planes, then
   all/surface/boundary IoU per plane at the thresholder's per-bin
   thresholds, or at each swept threshold;
@@ -11,9 +11,7 @@ JAX package's:
   `BDNet.forward_infer_depth` (the bisection, at the thresholder's
   thresholds where one is given), scored with the depth metrics against
   the ground truth (NaN read as 1, valid where above 0.5).
-`model_time` follows the reference protocol: forward wall time per frame at
-steady state (the first batch, which builds the kernel and warms cuDNN, is
-skipped), with a device synchronise on each side of the forward. With a
+`model_time` follows the reference protocol (depth_eval.py). With a
 `cache_dir`, each frame's prediction is pickled under the key
 `search_depths` or `pred_0` (utils/caching.py, the `--cache_depths` path).
 """
@@ -26,9 +24,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from implicit_depth_tpu_torch.data.loader import BatchLoader
 from implicit_depth_tpu_torch.eval import binary_metrics as bm
-from implicit_depth_tpu_torch.eval.metrics import ResultsAverager, compute_depth_metrics_batched
+from implicit_depth_tpu_torch.eval.depth_eval import depth_frame_metrics, score_rows, timed_batches
+from implicit_depth_tpu_torch.eval.metrics import ResultsAverager
 from implicit_depth_tpu_torch.models.blocks import resize_bilinear
 from implicit_depth_tpu_torch.ops.fused_volume import fused_metadata_volume
 from implicit_depth_tpu_torch.utils.caching import cache_model_outputs
@@ -42,7 +40,8 @@ def make_forward_fn(net, binary_eval_depth: bool = False,
     """Model-only forward, the timed unit: (cur, src) -> f32 predictions,
     the sigmoid predictions (b, h0, w0, P), or with binary_eval_depth the
     bisection's depths (b, h0, w0, 1). The thresholder lies on the net's
-    device."""
+    device. Every caller of forward_val takes its answer from here: the
+    eval loop, apps/inference.py, the temporal driver, BD validation."""
     if binary_eval_depth:
         tb = None if thresholder is None else thresholder.bins
         tv = None if thresholder is None else thresholder.thresholds
@@ -77,10 +76,7 @@ def make_score_fn(binary_eval_depth: bool = False,
             if pred.shape[1:3] != gt.shape[1:3]:
                 raise ValueError(f"depths at {tuple(pred.shape[1:3])} against ground truth at "
                                  f"{tuple(gt.shape[1:3])}: the scorer compares pixel by pixel")
-            b = gt.shape[0]
-            valid = torch.nan_to_num(gt, nan=0.0) > 0.5
-            return compute_depth_metrics_batched(torch.nan_to_num(gt, nan=1.0).reshape(b, -1),
-                                                 pred.reshape(b, -1), valid.reshape(b, -1))
+            return depth_frame_metrics(cur_data, pred)
         query = cur_data["rendered_depth"]
         hd, wd = gt.shape[1], gt.shape[2]
         pred_r = pred
@@ -103,11 +99,6 @@ def make_score_fn(binary_eval_depth: bool = False,
         return scores
 
     return score
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def evaluate_scenes(
@@ -143,60 +134,36 @@ def evaluate_scenes(
                           threshold_decimals=threshold_decimals)
 
     all_avg = ResultsAverager(name, "frame metrics")
-    per_scene = {}
+    per_scene = {s: ResultsAverager(name, f"scene {s}") for s in datasets_by_scene}
     fwd_time = step_time = 0.0
     fwd_frames = forwards = nonfinite = 0
     launches0 = fused_metadata_volume.launches
-    first_batch = True
     with torch.inference_mode():
-        for scene_id, ds in datasets_by_scene.items():
-            scene_avg = ResultsAverager(name, f"scene {scene_id}")
-            loader = BatchLoader(ds, batch_size, shuffle=False, num_workers=4,
-                                 prefetch=2, drop_last=False, epochs=1)
-            for bi, (cur, src) in enumerate(iter(loader)):
-                if max_batches_per_scene is not None and bi >= max_batches_per_scene:
-                    loader.stop()
-                    break
-                cur_t = {k: torch.as_tensor(v).to(device) for k, v in cur.items()
-                         if k != "frame_id_string"}
-                src_t = {k: torch.as_tensor(v).to(device) for k, v in src.items()
-                         if k != "frame_id_string"}
-                nb = cur_t["image"].shape[0]
-                _sync(device)
+        for scene_id, bi, cur, cur_t, pred, dt in timed_batches(
+                net, datasets_by_scene, batch_size, max_batches_per_scene, fwd):
+            t1 = time.perf_counter()
+            rows = score_rows(score(pred, cur_t))
+            nb = len(rows)
+            if forwards:
+                fwd_time += dt
+                step_time += dt + time.perf_counter() - t1
+                fwd_frames += nb
+            forwards += 1
+            nonfinite += int((~torch.isfinite(pred)).sum())
+            for elem in rows:
+                elem["model_time"] = dt / nb * 1000.0
+                per_scene[scene_id].update_results(elem)
+                all_avg.update_results(elem)
+            if cache_dir is not None:  # frames numbered where cur has no frame ids
+                pred_key = "search_depths" if binary_eval_depth else "pred_0"
+                cache_model_outputs(os.path.join(cache_dir, str(scene_id)),
+                                    {pred_key: pred.cpu().numpy()}, cur, {}, bi, batch_size)
 
-                t0 = time.perf_counter()
-                pred = fwd(cur_t, src_t)
-                _sync(device)
-                dt = time.perf_counter() - t0
-                scores = score(pred, cur_t)
-                keys = sorted(scores)
-                arr = torch.stack([scores[k] for k in keys], dim=-1).cpu().numpy()  # (b, n)
-                dt_step = time.perf_counter() - t0
-                forwards += 1
-                nonfinite += int((~torch.isfinite(pred)).sum())
-                if not first_batch:
-                    fwd_time += dt
-                    step_time += dt_step
-                    fwd_frames += nb
-                first_batch = False
-
-                for ei in range(nb):
-                    elem = {k: arr[ei, i] for i, k in enumerate(keys)}
-                    elem["model_time"] = dt / nb * 1000.0
-                    scene_avg.update_results(elem)
-                    all_avg.update_results(elem)
-
-                if cache_dir is not None:  # frames numbered where cur has no frame ids
-                    pred_key = "search_depths" if binary_eval_depth else "pred_0"
-                    cache_model_outputs(os.path.join(cache_dir, str(scene_id)),
-                                        {pred_key: pred.cpu().numpy()}, cur, {}, bi, batch_size)
-
-            scene_avg.compute_final_average(ignore_nans=True)
-            per_scene[scene_id] = scene_avg
-            if output_dir:
-                os.makedirs(output_dir, exist_ok=True)
-                scene_avg.output_json(os.path.join(output_dir, f"{scene_id}_metrics.json"))
-
+    for scene_id, scene_avg in per_scene.items():
+        scene_avg.compute_final_average(ignore_nans=True)
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+            scene_avg.output_json(os.path.join(output_dir, f"{scene_id}_metrics.json"))
     all_avg.compute_final_average(ignore_nans=True)
     if output_dir:
         all_avg.output_json(os.path.join(output_dir, "all_scenes_metrics.json"))

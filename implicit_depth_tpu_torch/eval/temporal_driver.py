@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from implicit_depth_tpu_torch.data.keyframes import pose_distance_np
+from implicit_depth_tpu_torch.eval.occlusion_eval import make_forward_fn
 from implicit_depth_tpu_torch.eval.rasterizer import rasterize_mesh_depth, render_plane_depth
 from implicit_depth_tpu_torch.eval.temporal import TemporalEvaluator
 from implicit_depth_tpu_torch.eval.vertex_scorer import DeviceVertexScorer
@@ -229,6 +230,7 @@ def evaluate_temporal(
     frame_times: list = []
     collected: list = []
     no_prior = torch.full((1, height, width, 1), -1.0, device=device)
+    bd_fwd = make_forward_fn(net, sigmoid_multiplier=sigmoid_multiplier)
 
     def plane(depth_hw, world_T_cam) -> tuple:
         """The window's plane: anchor pose and distance on the device."""
@@ -253,8 +255,7 @@ def evaluate_temporal(
             if use_prior:
                 cur["prior_prediction"] = prior_pred
                 cur["prior_cam_T_world"] = prior_cam[None]
-            out = net.forward_val(cur, src)
-            pred = torch.sigmoid(sigmoid_multiplier * out["pred_0"].float())
+            pred = bd_fwd(cur, src)
         fwd_timer.stop(t0)
         return pred
 

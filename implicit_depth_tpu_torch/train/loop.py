@@ -53,6 +53,7 @@ from implicit_depth_tpu_torch.data.loader import BatchLoader
 from implicit_depth_tpu_torch.data.mvs_dataset import BDSamplingConfig
 from implicit_depth_tpu_torch.data.registry import get_dataset
 from implicit_depth_tpu_torch.eval import binary_metrics as bm
+from implicit_depth_tpu_torch.eval.occlusion_eval import make_forward_fn
 from implicit_depth_tpu_torch.models.bd_net import BDNet
 from implicit_depth_tpu_torch.models.depth_net import DepthNet
 from implicit_depth_tpu_torch.ops import image as image_ops
@@ -61,7 +62,7 @@ from implicit_depth_tpu_torch.train import checkpoint as ckpt_lib
 from implicit_depth_tpu_torch.train import losses as loss_lib
 from implicit_depth_tpu_torch.train import state as state_lib
 from implicit_depth_tpu_torch.train.logging import ExperimentLogger, copy_code_state
-from implicit_depth_tpu_torch.utils.profiling import UPLOAD_BYTES, span
+from implicit_depth_tpu_torch.utils.device import batch_to_device
 from implicit_depth_tpu_torch.weights import init_params, lazy_load_state_dict, load_state_dict
 
 KINDS = ("bd", "regression")
@@ -159,42 +160,10 @@ class EpochSeededLoader(BatchLoader):
         return np.stack([np.full_like(order, epoch), order], axis=1)
 
 
-def _to_device(v, device: torch.device) -> torch.Tensor:
-    """One host array as a tensor on `device`, with the same dtype, shape,
-    strides and values as torch.as_tensor(v).to(device). On CUDA by pinned
-    staging and an asynchronous copy: the array is copied into a pinned
-    block of torch's caching host allocator (torch's parallel CPU copy),
-    and the block's copy to the card is issued on the current stream
-    without a wait. The allocator records an event on that stream for the
-    copy and hands the block out again only once the copy has finished, so
-    the caller may overwrite `v` as soon as this returns. Elsewhere the
-    plain copy. UPLOAD_BYTES counts the bytes under the path taken."""
-    t = torch.as_tensor(v)
-    if device.type != "cuda":
-        UPLOAD_BYTES["pageable"] += t.nbytes
-        return t.to(device)
-    pinned = torch.empty_like(t, pin_memory=True)
-    pinned.copy_(t)
-    UPLOAD_BYTES["pinned"] += t.nbytes
-    return pinned.to(device, non_blocking=True)
-
-
-def batch_to_device(batch, device: torch.device) -> tuple[dict, dict]:
-    """A collated numpy (cur, src) batch as tensors on `device`, without
-    "frame_id_string": on CUDA by pinned staging and asynchronous copies,
-    each key's copy issued as soon as it is staged, so the host stages the
-    next key while the card copies this one (_to_device). Returns once
-    every array has been read; the copies may still be running, in stream
-    order before the work that reads them."""
-    with span("idt.upload"):
-        return tuple({k: _to_device(v, device) for k, v in d.items()
-                      if k != "frame_id_string"} for d in batch)
-
-
 def _bd_val_metrics(net: BDNet, cfg: Config, cur: dict, src: dict) -> tuple:
     """The IoUs of the global validation batch (each rank's rows gathered)
     and this rank's prediction."""
-    pred = torch.sigmoid(cfg.bd_sigmoid_multiplier * net.forward_val(cur, src)["pred_0"].float())
+    pred = make_forward_fn(net, sigmoid_multiplier=cfg.bd_sigmoid_multiplier)(cur, src)
     query, gt, pred_all = (distributed.gather_rows(t)
                            for t in (cur["rendered_depth"], cur["depth"], pred))
     return bm.legacy_and_new_iou(query, gt, pred_all), pred

@@ -97,7 +97,8 @@ TRACE_FILE = "trace.json"
 # The program's stage spans, by name: the contract that trace readers (the
 # benchmark's port_bench/spans.py) match, as kernel names are for kernels.
 SPANS = {
-    "idt.upload": "train/loop.py::batch_to_device, the host-to-device upload of a batch",
+    "idt.upload": "utils/device.py::batch_to_device, the host-to-device upload of a batch "
+                  "(training, validation, the eval loops, the AR app)",
     "idt.forward_val": "BDNet.forward_val: the trunk and the query-plane head passes",
     "idt.forward": "the training forward: BDNet.forward; DepthNet.forward (train and eval)",
     "idt.trunk.encoder": "BDNet.trunk, DepthNet.forward: the pose products and the image encoder",
@@ -117,7 +118,7 @@ SPANS = {
     "idt.step.optimizer": "zero_grad, the gradients' fill and average, AdamW and scheduler",
 }
 
-# Bytes that train/loop.py::batch_to_device has uploaded, by path: "pinned"
+# Bytes that utils/device.py::batch_to_device has uploaded, by path: "pinned"
 # (staged through pinned host memory, copied asynchronously: on CUDA) and
 # "pageable" (the plain copy: any other device). The pinned share of the
 # whole says how often the staged path engages.

@@ -29,8 +29,8 @@ import torch
 from implicit_depth_tpu_torch.models.bd_net import BDNet
 from implicit_depth_tpu_torch.models.depth_net import DepthNet
 from implicit_depth_tpu_torch.train import state
-from implicit_depth_tpu_torch.train.loop import batch_to_device
 from implicit_depth_tpu_torch.utils import profiling
+from implicit_depth_tpu_torch.utils.device import batch_to_device
 from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
 from implicit_depth_tpu_torch.weights import init_params
 

@@ -1,10 +1,14 @@
-"""The batch upload (train/loop.py::batch_to_device) and its counter
+"""The batch upload (utils/device.py::batch_to_device) and its counter
 (utils/profiling.py::UPLOAD_BYTES).
 
 - On the CPU: the plain copy, torch.as_tensor(v).to(device), for every key
   but "frame_id_string", with the same dtypes, shapes, strides and bytes;
   the counter adds the batch's bytes under "pageable" and none under
   "pinned".
+- The eval loops and the AR app (evaluate_scenes, evaluate_depth,
+  run_inference) upload every batch through it: on a tiny synthetic
+  dataset the counter grows by exactly the bytes of the batches they
+  take.
 - On the card (marked cuda, skipped without one): the staged path through
   pinned host memory gives tensors bit-equal to the plain copy, strides
   included, for every key and dtype (the bool mask too, and arrays that
@@ -19,9 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from implicit_depth_tpu_torch.train.loop import batch_to_device
-from implicit_depth_tpu_torch.utils.profiling import UPLOAD_BYTES
+from implicit_depth_tpu_torch.apps.inference import run_inference
+from implicit_depth_tpu_torch.data.mvs_dataset import collate
+from implicit_depth_tpu_torch.data.synthetic import SyntheticDataset
+from implicit_depth_tpu_torch.eval.depth_eval import evaluate_depth
+from implicit_depth_tpu_torch.eval.occlusion_eval import evaluate_scenes
+from implicit_depth_tpu_torch.models.bd_net import BDNet
+from implicit_depth_tpu_torch.models.depth_net import DepthNet
+from implicit_depth_tpu_torch.utils.device import batch_to_device
 from implicit_depth_tpu_torch.utils.fixtures import synthetic_bd_batch
+from implicit_depth_tpu_torch.utils.profiling import UPLOAD_BYTES
 
 CPU = torch.device("cpu")
 
@@ -73,6 +84,39 @@ def test_cpu_upload_counts_pageable_bytes():
     before = dict(UPLOAD_BYTES)
     batch_to_device(batch, CPU)
     assert UPLOAD_BYTES["pageable"] - before["pageable"] == _batch_bytes(batch)
+    assert UPLOAD_BYTES["pinned"] == before["pinned"]
+
+
+TINY = dict(image_encoder_name="tiny", num_src_views=2, num_depth_bins=8)
+
+
+def _run_caller(caller: str, tmp_path) -> list:
+    """Runs one caller on the CPU over a tiny synthetic scene (2 tuples of
+    3 views at 64x96) with a tiny net at torch's default init; returns the
+    host batches it should have uploaded."""
+    ds = SyntheticDataset(num_frames=4, num_views=3, split="test",
+                          get_bd_info=caller != "evaluate_depth")
+    if caller == "run_inference":
+        net = BDNet(**TINY).eval()
+        run_inference(net, ds, str(tmp_path))
+        batches = [collate([ds[i]]) for i in range(len(ds))]
+        for cur, _ in batches:  # the rendered depth replaces the dataset's
+            cur["rendered_depth"] = np.zeros(cur["depth"].shape[:3] + (1,), np.float32)
+        return batches
+    if caller == "evaluate_scenes":
+        net = BDNet(**TINY).eval()
+        evaluate_scenes(net, {"scene0": ds}, batch_size=2)
+    else:
+        net = DepthNet(**TINY).eval()
+        evaluate_depth(net, {"scene0": ds}, batch_size=2)
+    return [collate([ds[0], ds[1]])]
+
+
+@pytest.mark.parametrize("caller", ["evaluate_scenes", "evaluate_depth", "run_inference"])
+def test_eval_and_app_callers_upload_through_batch_to_device(caller, tmp_path):
+    before = dict(UPLOAD_BYTES)
+    batches = _run_caller(caller, tmp_path)
+    assert UPLOAD_BYTES["pageable"] - before["pageable"] == sum(map(_batch_bytes, batches))
     assert UPLOAD_BYTES["pinned"] == before["pinned"]
 
 
