@@ -30,9 +30,14 @@ Flip augmentation follows the reference: images flipped, matching features
 unflipped before the volume, the volume re-flipped before the CV encoder,
 decoder features unflipped at the end.
 
-Batch dicts use the JAX package's NHWC layout (see its module docstring);
-the conv stacks run in NCHW. Pose products, the volume geometry and the
-prior's geometry are f32 at full precision, also under autocast.
+Batch dicts use the JAX package's NHWC layout (see its module docstring).
+The conv stacks take NCHW-shaped tensors; at half precision they are
+channels_last in memory, weights from construction and each stack's input
+through blocks.stack_input (the layout cuDNN's tensor-core convs run in,
+with no transpose around them): the NHWC image permuted already is, the
+matching images and the cost volume are copied into it with their cast.
+Pose products, the volume geometry and the prior's geometry are f32 at
+full precision, also under autocast.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import torch.nn as nn
 
 from implicit_depth_tpu_torch.core import geometry
 from implicit_depth_tpu_torch.core.sampling import grid_sample
+from implicit_depth_tpu_torch.models.blocks import conv_memory_format, stack_input
 from implicit_depth_tpu_torch.models.decoders import NUM_CH_DEC, BinaryMLPNetwork, CVEncoder
 from implicit_depth_tpu_torch.models.depth_net import (VOLUME_TYPES, depth_decoder, image_encoder,
                                                        matching_encoder)
@@ -131,6 +137,7 @@ class BDNet(nn.Module):
                                      regression=False)
         # fc0 rows: the query depth, the features [, the prior]
         self.binary_mlp = BinaryMLPNetwork([NUM_CH_DEC[s] + 1 + int(use_prior) for s in SCALES])
+        self.to(memory_format=conv_memory_format(compute_dtype))  # the conv weights: all 4-D
 
     def cast_to_compute_dtype(self) -> "BDNet":
         """Casts the conv and dense stacks to the compute dtype. The volume
@@ -143,9 +150,10 @@ class BDNet(nn.Module):
     def trunk(self, cur_data: dict, src_data: dict, flip: bool = False,
               train: bool = False, stop_at: str = "") -> dict:
         """Encoders + cost volume + U-Net. Returns per-scale decoder features
-        (NCHW, unflipped), the lowest-cost depth and the depth planes. `train`
-        runs the differentiable metadata volume (kernels #1 and #2); the dot
-        volume is differentiable either way (kernels #5 and #6).
+        (NCHW-shaped, channels_last at half precision, unflipped), the
+        lowest-cost depth and the depth planes. `train` runs the
+        differentiable metadata volume (kernels #1 and #2); the dot volume
+        is differentiable either way (kernels #5 and #6).
 
         `stop_at` is the profilers' probe (cli/profile_eval.py,
         cli/roofline.py), with the JAX package's returns: "encoder" ->
@@ -173,14 +181,14 @@ class BDNet(nn.Module):
                 cur_T_src = torch.einsum("bij,bkjl->bkil", cur_data["cam_T_world"].float(),
                                          src_data["world_T_cam"].float())
 
-            enc_feats = self.encoder(cur_image.to(cdt))
+            enc_feats = self.encoder(stack_input(cur_image, cdt))
             if stop_at == "encoder":
                 return {"features": list(enc_feats)}
 
         with span("idt.trunk.matching"):
             all_images = torch.cat([cur_image[:, None], src_image], dim=1)
             mfeats = self.matching(
-                all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
+                stack_input(all_images.reshape((b * (k + 1),) + all_images.shape[2:]), cdt))
             mfeats = mfeats.permute(0, 2, 3, 1)                        # NHWC
             mfeats = mfeats.reshape((b, k + 1) + mfeats.shape[1:])
             if flip:
@@ -212,7 +220,7 @@ class BDNet(nn.Module):
         with span("idt.trunk.cv_encoder"):
             if flip:
                 volume = volume.flip(3)
-            cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
+            cv_feats = self.cv_encoder(stack_input(volume, cdt), enc_feats[s:])
             if stop_at == "cv_encoder":
                 return {"features": cv_feats}
 

@@ -1,6 +1,11 @@
-"""Shared network blocks (torch, NCHW inside the conv stacks).
+"""Shared network blocks (torch; the conv stacks' tensors are NCHW-shaped,
+channels_last in memory at half precision).
 
 Counterpart of implicit_depth_tpu/models/blocks.py:
+- conv_memory_format, stack_input: the stacks' layout at a compute dtype,
+  and a stack's input in it (counted in CONV_LAYOUT);
+- memory_format_of, replicate_pad: a tensor's layout, and replicate
+  padding that keeps channels_last;
 - BasicBlock: norm-free residual block, bias convs, LeakyReLU(0.2)
   (leaky_relu02);
 - DoubleBasicBlock: BasicBlock x num_repeats;
@@ -17,7 +22,49 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from implicit_depth_tpu_torch.utils.profiling import CONV_LAYOUT
+
 Tensor = torch.Tensor
+
+
+def conv_memory_format(dtype: torch.dtype) -> torch.memory_format:
+    """The memory format of the conv stacks at compute dtype `dtype`:
+    channels_last at half precision, the layout of cuDNN's tensor-core
+    convs, which transposes an NCHW tensor around each conv. At f32 the
+    tensors keep the layouts torch gives them: the arithmetic on which
+    the CPU tests' per-parameter gradient bounds against the JAX package
+    were set (oneDNN's channels_last f32 sums round otherwise)."""
+    return torch.channels_last if dtype in (torch.bfloat16, torch.float16) else torch.preserve_format
+
+
+def stack_input(x_nchw: Tensor, dtype: torch.dtype) -> Tensor:
+    """A conv stack's input in `dtype` and the stacks' memory format
+    (conv_memory_format): the one place a stack's input changes layout.
+    At half precision CONV_LAYOUT counts the inputs that came
+    channels_last and those this call copies into it (one kernel, with
+    the cast)."""
+    fmt = conv_memory_format(dtype)
+    if fmt == torch.channels_last:
+        cl = x_nchw.is_contiguous(memory_format=fmt)
+        CONV_LAYOUT["channels_last" if cl else "converted"] += 1
+    return x_nchw.to(dtype, memory_format=fmt)
+
+
+def memory_format_of(x_nchw: Tensor) -> torch.memory_format:
+    """channels_last for a tensor laid out so (and not also contiguous),
+    else contiguous_format."""
+    cl = x_nchw.is_contiguous(memory_format=torch.channels_last) and not x_nchw.is_contiguous()
+    return torch.channels_last if cl else torch.contiguous_format
+
+
+def replicate_pad(x_nchw: Tensor, pad: int) -> Tensor:
+    """F.pad(x, (pad,) * 4, mode="replicate") that keeps channels_last on
+    every device (CUDA's 2-D replicate pad writes NCHW): a channels_last
+    input is padded on its NHWC view as a 3-D pad with none on C."""
+    if memory_format_of(x_nchw) != torch.channels_last:
+        return F.pad(x_nchw, (pad,) * 4, mode="replicate")
+    x_nhwc = x_nchw.permute(0, 2, 3, 1)
+    return F.pad(x_nhwc, (0, 0) + (pad,) * 4, mode="replicate").permute(0, 3, 1, 2)
 
 
 def leaky_relu02(x: Tensor) -> Tensor:

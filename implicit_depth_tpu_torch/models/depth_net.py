@@ -25,7 +25,8 @@ unflipped before the volume, the volume re-flipped before the CV encoder,
 log depths unflipped at the end. `lowest_cost` comes from the detached
 volume.
 
-Batch dicts use the JAX package's NHWC layout; the conv stacks run in NCHW.
+Batch dicts use the JAX package's NHWC layout; the conv stacks run on
+NCHW-shaped tensors, channels_last at half precision, as BDNet's do.
 Pose products and the warp geometry are f32 at full precision, also under
 autocast; the warped features and the volume take the compute dtype.
 """
@@ -36,6 +37,7 @@ import torch
 import torch.nn as nn
 
 from implicit_depth_tpu_torch.core import geometry
+from implicit_depth_tpu_torch.models.blocks import conv_memory_format, stack_input
 from implicit_depth_tpu_torch.models.decoders import CVEncoder, DecoderPP, SkipDecoder
 from implicit_depth_tpu_torch.models.fpn_matching import FPNMatchingEncoder
 from implicit_depth_tpu_torch.models.image_encoders import EfficientNetV2S, ResNet18D, TinyEncoder
@@ -120,6 +122,7 @@ class DepthNet(nn.Module):
         self.decoder = depth_decoder(depth_decoder_name,
                                      enc_ch[:matching_scale] + list(self.cv_encoder.num_ch_outs),
                                      regression=True)
+        self.to(memory_format=conv_memory_format(compute_dtype))  # the conv weights: all 4-D
 
     def cast_to_compute_dtype(self) -> "DepthNet":
         """Casts the conv stacks to the compute dtype for inference. The
@@ -155,12 +158,12 @@ class DepthNet(nn.Module):
                 cur_T_src = torch.einsum("bij,bkjl->bkil", cur_data["cam_T_world"].float(),
                                          src_data["world_T_cam"].float())
 
-            enc_feats = self.encoder(cur_image.to(cdt))
+            enc_feats = self.encoder(stack_input(cur_image, cdt))
 
         with span("idt.trunk.matching"):
             all_images = torch.cat([cur_image[:, None], src_image], dim=1)
             mfeats = self.matching(
-                all_images.reshape((b * (k + 1),) + all_images.shape[2:]).to(cdt))
+                stack_input(all_images.reshape((b * (k + 1),) + all_images.shape[2:]), cdt))
             mfeats = mfeats.permute(0, 2, 3, 1)                        # NHWC
             mfeats = mfeats.reshape((b, k + 1) + mfeats.shape[1:])
             if flip:
@@ -191,7 +194,7 @@ class DepthNet(nn.Module):
         with span("idt.trunk.cv_encoder"):
             if flip:
                 volume = volume.flip(3)
-            cv_feats = self.cv_encoder(volume.to(cdt), enc_feats[s:])
+            cv_feats = self.cv_encoder(stack_input(volume, cdt), enc_feats[s:])
 
         with span("idt.trunk.decoder"):
             dec = self.decoder(list(enc_feats[:s]) + cv_feats)

@@ -21,6 +21,8 @@ implicit_depth_tpu/utils/profiling.py.
 - UPLOAD_BYTES: the bytes the batch upload has moved, by the path it took.
 - BN_EVAL_AFFINE: the eval batch norms' cached scale and shift, by hits
   and rebuilds.
+- CONV_LAYOUT: the half-precision conv stacks' inputs, by whether they came
+  channels_last or had to be copied into it.
 """
 
 from __future__ import annotations
@@ -130,6 +132,14 @@ UPLOAD_BYTES = {"pinned": 0, "pageable": 0}
 # hit; each miss after the first frame is a weights version or an input
 # dtype the cache had not seen. Calls with grad enabled count neither.
 BN_EVAL_AFFINE = {"hits": 0, "misses": 0}
+
+# Inputs of the half-precision conv stacks at models/blocks.py::stack_input,
+# by whether they already had the channels_last layout ("channels_last") or
+# were copied into it with their cast ("converted"). A forward or a train
+# step takes the image channels_last and converts two: the matching images,
+# concatenated NCHW, and the cost volume, which the volume stage writes
+# (b, d, h, w); any other copy is a layout leak.
+CONV_LAYOUT = {"channels_last": 0, "converted": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -97,9 +97,11 @@ def lazy_load_state_dict(model: nn.Module, state_dict: dict) -> int:
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
+    # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance;
+    # drawn in index order, so a channels_last weight gets the same values
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    draw = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    t.copy_(nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:

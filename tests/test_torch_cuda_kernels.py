@@ -67,6 +67,10 @@ four times, the state bit-equal after it.
 The last functions ported from the JAX package (`-k overall_source_mask`):
 overall_source_mask from build_warped_views on the card (#5 once) against
 the CPU, equal but within 1e-4 px of its border.
+The conv stacks' layout (`-k channels_last`): a warm bf16 forward_val and
+BD train step of tests/test_torch_channels_last.py's nets (EfficientNetV2-S)
+on the card, every conv on a channels_last input and weight, and no layout
+transpose of cuDNN's (`nchwToNhwc`, `nhwcToNchw`) in the profiler's kernels.
 """
 
 import numpy as np
@@ -878,3 +882,21 @@ def test_overall_source_mask_on_the_card_matches_cpu(cuda):
     assert wk.warp_planes.launches == before + 1
     assert res["mask_mismatch"] <= res["mask_border_pixels"]
     assert 0.5 < res["mask_true_share"] < 1.0
+
+
+@pytest.mark.parametrize("case", ["forward_val-bf16", "bd_train_step"])
+def test_channels_last_on_the_card_launches_no_transpose(cuda, case):
+    from torch.profiler import ProfilerActivity, profile
+
+    import test_torch_channels_last as tcl
+
+    net, run = tcl.setup_case(case, cuda)
+    run()  # warm: cuDNN's plans and the kernels' builds
+    torch.cuda.synchronize()
+    with tcl.conv_layouts(net) as seen, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    tcl.check_layouts(net, seen, train=case == "bd_train_step")
+    kernels = [e.key for e in prof.key_averages()]
+    assert any("fprop" in k or "conv" in k.lower() for k in kernels), kernels
+    assert [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k] == []
